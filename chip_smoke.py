@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, kernels, main path.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, kernels, main paths.
 
     python3 chip_smoke.py
 
 1. Build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a into
    ``src/repro_torch/_build/`` (one nvcc per source, all in parallel).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, with its time, the plain version's,
+   at the shapes the main paths give it, with its time, the plain version's,
    a library call's where one computes the same function, and the bound
-   from bytes and float32 operations.
+   from bytes and operations.
 3. Pipeline: ``repro_torch.core.pipeline.resolve`` for nomp, smp and mmp on
    the HEPTH-like corpus ``SynthConfig.hepth(scale=1.0, seed=7)`` on CUDA,
    then the MMP fixpoint scored with ``MLNMatcher.score``.  The kernels'
    launch counters are set to 0 just before and read just after.  The
    match gids must equal the port's own CPU run, and the evals, messages,
    matches and P/R/F1 the reference table below.
-4. Profile: the first 100 MMP evaluations once more under
+4. Stream: the same corpus through ``repro_torch.stream.ResolveService``
+   on CUDA, as 29 paper-aligned batches (smp and mmp) and as one batch
+   (smp).  The launch counters are set to 0 before each run and read
+   after it.  Matches, evals, clusters, the O(dirty) counters and the
+   digests must equal the reference table ``EXPECTED_STREAM``; the
+   one-batch gids must equal phase 3's smp gids.  Prints each run's wall
+   time, ingest p50/p99 and the time of each ingest stage (tracing spans).
+5. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-5. The card's name and power limit, the kernel list as one JSON line, and
+6. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -40,6 +47,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks: HBM3 bytes/s and float32 (non-tensor-core) flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# int32 min/compare outside the tensor cores: 132 SMs x 64 INT32 lanes
+# an SM a clock x 1.98 GHz boost clock (H100 SXM, Hopper white paper)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 # ``resolve`` on SynthConfig.hepth(scale=1.0, seed=7) with the reference
 # package (algorithm-determined, framework-independent):
@@ -50,6 +60,33 @@ EXPECTED = {
     "mmp": (467, 126, 4, 3000, 0.8067, 0.8521, 0.8288),
 }
 CORPUS = dict(refs=1842, neighborhoods=406)
+
+# ``ResolveService(ServiceConfig(scheme=...))`` fed the same corpus with the
+# reference package (algorithm-determined, framework-independent).
+# (scheme, batches) -> matches, summed evals, clusters of >= 2, summed
+# replay_visits / cover_splice_rows / grounding_pair_visits, digests.
+# Batches: ``arrival_stream(ds, batch_size=64)`` (29 paper-aligned batches),
+# or one batch of every id and every coauthor edge.
+EXPECTED_STREAM = {
+    ("smp", 29): dict(
+        matches=3015, evals=2153, clusters=353, replay_visits=8741,
+        cover_splice_rows=1878, grounding_pair_visits=0,
+        match_digest="22666affdd33605ff048087be7ef1d570813ba18fe0ecb9bf4d4732c10a8df6b",
+        state_digest="97741b7640050f6ceb98f6b8d6720b956c6bdd9278c62ec6869e44c5f18b1222",
+    ),
+    ("mmp", 29): dict(
+        matches=3031, evals=2157, clusters=369, replay_visits=8741,
+        cover_splice_rows=1878, grounding_pair_visits=4707,
+        match_digest="455b8da3058044e71ddd381d47687911627ccf1c99389f02a6dc6278e50bedbf",
+        state_digest="60ae36cb6a8e980c18c11a36d67d9c00217dbdb6bf34eaa58d5093c33a788b40",
+    ),
+    ("smp", 1): dict(
+        matches=2984,
+        match_digest="7033f22c37fcd616d9e0d95a76d412fe98c86f87079461cf366d9e2fffe607d2",
+    ),
+}
+STREAM_SPANS = ("ingest.lsh", "ingest.replay", "ingest.cover_splice",
+                "ingest.grounding_splice", "ingest.rounds", "ingest.commit")
 
 KERNELS = {
     "icm_sweep": dict(
@@ -64,7 +101,31 @@ KERNELS = {
         source="src/repro_torch/csrc/mln_score.cu",
         replaces="src/repro/kernels/mln_score/kernel.py:81",
     ),
+    "minhash": dict(
+        source="src/repro_torch/csrc/minhash.cu",
+        replaces="src/repro/kernels/minhash/kernel.py:59",
+    ),
 }
+
+
+def _wrappers() -> dict:
+    """Each ported kernel's wrapper, which carries its launch counter."""
+    from repro_torch.kernels.icm_sweep import ops as icm
+    from repro_torch.kernels.minhash import ops as mh
+    from repro_torch.kernels.mln_score import ops as score
+    from repro_torch.kernels.ngram_sim import ops as sim
+
+    return {"icm_sweep": icm.sweep_batched, "ngram_sim": sim.sim_above,
+            "mln_score": score.score_sets, "minhash": mh.minhash}
+
+
+def _zero_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def log(msg: str) -> None:
@@ -120,10 +181,11 @@ def time_ms(fn, iters: int = 50) -> tuple[float, float]:
     return device, _events_ms(eager) / iters
 
 
-def bound(n_bytes: int, flops: int) -> tuple[float, str]:
-    """Least time on the card (ms): the larger of bytes and float32 flops."""
+def bound(n_bytes: int, ops: int, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time on the card (ms): the larger of bytes and operations (at
+    ``peak`` operations a second: float32 by default)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -149,6 +211,7 @@ def phase_kernels(dev) -> list[dict]:
     import torch
 
     from repro_torch.kernels.icm_sweep import ops as icm
+    from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
     from repro_torch.kernels.ngram_sim import ops as sim
 
@@ -158,17 +221,21 @@ def phase_kernels(dev) -> list[dict]:
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    def check(name, shape, kernel, plain, library, tol, n_bytes, flops):
+    def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+        if tol is None:  # exact: integer outputs
+            require(torch.equal(got, want), f"{name} {shape}: kernel and plain version differ")
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
         ms, call_ms = time_ms(kernel)
         row = dict(
-            name=name, shape=shape, max_abs_err=float((got - want).abs().max()),
+            name=name, shape=shape,
+            max_abs_err=float((got.double() - want.double()).abs().max()),
             ms=ms, call_ms=call_ms, plain_ms=time_ms(plain)[0],
             library_ms=None if library is None else time_ms(library)[0],
         )
-        row["bound_ms"], row["bound_by"] = bound(n_bytes, flops)
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, peak)
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(
             f"[kernels] {name:9s} {shape:22s} ok  max_abs_err={row['max_abs_err']:.3g}"
@@ -189,7 +256,8 @@ def phase_kernels(dev) -> list[dict]:
             4 * (B * P + B * P * P + 2 * B * S * P), 2 * B * S * P * P,
         )
 
-    for M, N, F in [(1, 1024, 128), (1024, 1842, 128)]:
+    # the canopy seed probe, the all-pairs form, and the streaming probe
+    for M, N, F in [(1, 1024, 128), (1024, 1842, 128), (64, 936, 128)]:
         A = rng.random((M, F)).astype(np.float32)
         Bm = rng.random((N, F)).astype(np.float32)
         A = put(A / np.linalg.norm(A, axis=1, keepdims=True))
@@ -213,6 +281,21 @@ def phase_kernels(dev) -> list[dict]:
             dict(rtol=2e-5, atol=2e-4),
             4 * (B * P + B * P * P + B * S * P + B * S), 2 * B * S * P * P + 2 * B * S * P,
         )
+
+    # the per-ingest signature call, and the whole corpus at once
+    for N, H, D in [(64, 128, 512), (1842, 128, 512)]:
+        present = rng.random((N, D)) < 9 / D  # the path's density: ~9 of 512
+        present[[1, N // 2, N - 1]] = False  # rows with no shingle give EMPTY
+        X = put(present.astype(np.float32))
+        A = put(mh.hash_table(H, D, seed=N))
+        check(
+            "minhash", f"N={N},H={H},D={D}",
+            lambda: mh.minhash(X, A), lambda: mh.minhash_plain(X, A),
+            None,  # no single PyTorch call computes the masked min
+            None,  # exact
+            # ops: one int32 min for each present shingle of each row and hash
+            4 * (N * D + H * D + N * H), H * int(present.sum()), PEAK_INT32_OPS,
+        )
     return rows
 
 
@@ -233,17 +316,11 @@ def phase_pipeline(dev):
     from repro_torch.core import pipeline
     from repro_torch.core.mln import MLNMatcher, PAPER_LEARNED
     from repro_torch.data.synthetic import SynthConfig, make_dataset
-    from repro_torch.kernels.icm_sweep import ops as icm
-    from repro_torch.kernels.mln_score import ops as score
-    from repro_torch.kernels.ngram_sim import ops as sim
 
-    wrappers = {"icm_sweep": icm.sweep_batched, "ngram_sim": sim.sim_above,
-                "mln_score": score.score_sets}
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     truth = ds.entities.truth
 
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_counts()
     gpu, wall = {}, {}
     for scheme in EXPECTED:
         t0 = time.perf_counter()
@@ -257,10 +334,10 @@ def phase_pipeline(dev):
         for k, nb in fixpoint.packed.bins.items()
     }
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = _read_counts()
     log(f"[pipeline] launches on the main path: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was never launched on the main path")
+    for name in ("icm_sweep", "ngram_sim", "mln_score"):
+        require(launches[name] > 0, f"{name} was never launched on the main path")
 
     packed = fixpoint.packed
     log(
@@ -305,7 +382,83 @@ def phase_pipeline(dev):
             f"{res.messages_emitted}/{res.messages_promoted}, matches {len(res.matches)}, "
             f"P {prf.precision:.4f} R {prf.recall:.4f} F1 {prf.f1:.4f}"
         )
-    return launches, fixpoint
+    return launches, gpu
+
+
+def stream_run(dev, scheme: str, batches) -> dict:
+    """One ``ResolveService`` fed ``batches`` on ``dev``: the reference
+    table's quantities, the wall and span times, and the launch counts."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.mln import PAPER_LEARNED
+    from repro_torch.stream import ResolveService, ServiceConfig
+    from repro_torch.stream.digest import match_digest, state_digest
+
+    svc = ResolveService(ServiceConfig(scheme=scheme, weights=PAPER_LEARNED), device=dev)
+    obs.reset()
+    _zero_counts()
+    t0 = time.perf_counter()
+    reports = [svc.ingest(b.names, b.edges, ids=b.ids) for b in batches]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    spans = obs.get_registry().snapshot()["spans"]
+    ingest_s = np.array([r.wall_time_s for r in reports])
+    return dict(
+        service=svc, wall=wall, launches=launches,
+        p50=float(np.percentile(ingest_s, 50)), p99=float(np.percentile(ingest_s, 99)),
+        spans={n: spans.get(n, {}).get("total_s", 0.0) for n in STREAM_SPANS},
+        matches=len(svc.matches), evals=sum(r.neighborhood_evals for r in reports),
+        clusters=len(svc.clusters()),
+        replay_visits=sum(r.replay_visits for r in reports),
+        cover_splice_rows=sum(r.cover_splice_rows for r in reports),
+        grounding_pair_visits=sum(r.grounding_pair_visits for r in reports),
+        match_digest=match_digest(svc.matches), state_digest=state_digest(svc),
+    )
+
+
+def stream_schedules(ds) -> dict:
+    """Batches by count: 29 paper-aligned ones, and the whole corpus as one
+    (every id and every coauthor edge)."""
+    from repro_torch.data.synthetic import arrival_stream
+
+    return {29: arrival_stream(ds, batch_size=64), 1: arrival_stream(ds, 1)}
+
+
+def phase_stream(dev, resolved) -> dict:
+    """The streaming service on CUDA against the reference table; returns
+    the launch counts summed over its runs."""
+    from repro_torch.data.synthetic import SynthConfig, make_dataset
+
+    ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
+    schedules = stream_schedules(ds)
+    require(len(schedules[29]) == 29, f"{len(schedules[29])} batches, expected 29")
+    total = dict.fromkeys(KERNELS, 0)
+    for (scheme, n_batches), want in EXPECTED_STREAM.items():
+        run = stream_run(dev, scheme, schedules[n_batches])
+        got = {k: run[k] for k in want}
+        require(got == want, f"stream {scheme}/{n_batches}: got {got}, expected {want}")
+        lc = run["launches"]
+        if n_batches == 29:
+            require(lc["minhash"] == n_batches,
+                    f"minhash launched {lc['minhash']} times in {n_batches} ingests")
+        for name in ("minhash", "ngram_sim", "icm_sweep"):
+            require(lc[name] > 0, f"{name} was never launched on the stream path")
+        if n_batches == 1:
+            require(np.array_equal(run["service"].matches.gids, resolved["smp"].result.matches.gids),
+                    "one-batch stream and batch resolve give different smp gids")
+        for name, n in lc.items():
+            total[name] += n
+        log(
+            f"[stream] {scheme}, {n_batches} batches: wall {run['wall']:.2f} s, ingest p50 "
+            f"{run['p50'] * 1e3:.1f} ms p99 {run['p99'] * 1e3:.1f} ms; spans s: "
+            + ", ".join(f"{n.removeprefix('ingest.')} {t:.3f}" for n, t in run["spans"].items())
+            + f"; matches {run['matches']}, evals {run['evals']}, clusters {run['clusters']}, "
+            f"launches {lc}"
+        )
+    return total
 
 
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
@@ -362,8 +515,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
-    launches, fixpoint = phase_pipeline(dev)
-    phase_profile(dev, fixpoint)
+    launches, resolved = phase_pipeline(dev)
+    stream_launches = phase_stream(dev, resolved)
+    phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -378,7 +532,9 @@ def main() -> int:
         main_shape = mine[0]  # the first shape listed is the main path's per-eval call
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=launches[name], shape=main_shape["shape"],
+            launches=launches[name] + stream_launches[name],
+            launches_by_path={"pipeline": launches[name], "stream": stream_launches[name]},
+            shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

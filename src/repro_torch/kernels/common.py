@@ -61,15 +61,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_operand(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on ``device``,
+def check_operand(
+    name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+    dtype: torch.dtype = torch.float32,
+) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``,
     a CUDA device (the kernels take nothing else)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernels take CUDA tensors, not {device}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

@@ -1,7 +1,13 @@
-"""Runtime observability of the port: the process-wide metrics registry.
+"""Runtime observability of the port: metrics registry, tracing, transfers.
 
-Only :mod:`repro_torch.obs.registry` is ported so far; the drivers
-publish their ``em.*`` counters into it.
+* :mod:`repro_torch.obs.registry` — process-wide, thread-safe counters /
+  gauges / histograms; the drivers publish their ``em.*`` counters and
+  the streaming service its ``ingest.*`` family into it.
+* :mod:`repro_torch.obs.tracing` — nestable ``span()`` context managers
+  with optional device fencing; the span taxonomy is in its docstring.
+* :mod:`repro_torch.obs.transfer` — host→device upload-byte accounting.
+
+The reference's exporters (``repro.obs.export``) are not ported yet.
 """
 
 from repro_torch.obs.registry import (  # noqa: F401
@@ -9,5 +15,16 @@ from repro_torch.obs.registry import (  # noqa: F401
     get_registry,
     reset,
 )
+from repro_torch.obs.tracing import Span, SpanRecord, span  # noqa: F401
+from repro_torch.obs.transfer import record_transfer, total_upload_bytes  # noqa: F401
 
-__all__ = ["MetricsRegistry", "get_registry", "reset"]
+__all__ = [
+    "MetricsRegistry",
+    "Span",
+    "SpanRecord",
+    "get_registry",
+    "record_transfer",
+    "reset",
+    "span",
+    "total_upload_bytes",
+]

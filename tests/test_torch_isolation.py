@@ -81,43 +81,82 @@ def test_parallel_engine_not_ported_yet():
         pipeline.resolve(ds.entities, ds.relations, parallel=True, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score"])
+@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score", "minhash"])
 def test_wrappers_use_plain_version_only_for_cpu_tensors(name):
     """A CPU tensor runs the plain version and launches nothing."""
     import numpy as np
 
     from repro_torch.kernels.icm_sweep import ops as icm
+    from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
     from repro_torch.kernels.ngram_sim import ops as sim
 
     rng = np.random.default_rng(0)
     t = lambda *s: torch.as_tensor(rng.random(s).astype(np.float32))  # noqa: E731
-    wrapper, args = {
-        "icm_sweep": (icm.sweep_batched, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
-        "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5)),
-        "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
+    table = torch.as_tensor(mh.hash_table(8, 16))
+    wrapper, args, dtype = {
+        "icm_sweep": (icm.sweep_batched, (t(2, 8), t(2, 8, 8), t(2, 3, 8)), torch.float32),
+        "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5), torch.float32),
+        "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8)), torch.float32),
+        "minhash": (mh.minhash, (t(5, 16), table), torch.int32),
     }[name]
     before = wrapper.launches
     out = wrapper(*args)
-    assert out.device.type == "cpu" and out.dtype == torch.float32
+    assert out.device.type == "cpu" and out.dtype == dtype
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score"])
+@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score", "minhash"])
 def test_wrappers_raise_on_non_cuda_devices(name):
     """Off the CPU a wrapper launches its CUDA kernel or raises: a tensor on
     another device never reaches the kernel and never takes the plain path."""
     from repro_torch.kernels.icm_sweep import ops as icm
+    from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
     from repro_torch.kernels.ngram_sim import ops as sim
 
-    t = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    t = lambda *s, dtype=torch.float32: torch.empty(s, device="meta", dtype=dtype)  # noqa: E731
     wrapper, args = {
         "icm_sweep": (icm.sweep_batched, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
         "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5)),
         "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
+        "minhash": (mh.minhash, (t(5, 16), t(8, 16, dtype=torch.int32))),
     }[name]
     before = wrapper.launches
     with pytest.raises(ValueError, match="CUDA"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+def test_resolve_service_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
+    """ResolveService() runs on CUDA: without a GPU it raises, never falls back."""
+    from repro_torch.stream import ResolveService, ServiceConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResolveService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResolveService(ServiceConfig(scheme="mmp"))
+    assert ResolveService(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("what", [
+    "parallel", "durability_dir", "shard", "string_matcher", "gcache_capacity", "recover",
+])
+def test_unported_service_options_raise(what, tmp_path):
+    """Each option whose engine is not ported yet raises and names its ROADMAP item."""
+    from repro_torch.stream import ResolveService, ServiceConfig
+
+    make = {
+        "parallel": lambda: ResolveService(ServiceConfig(parallel=True), device="cpu"),
+        "durability_dir": lambda: ResolveService(
+            ServiceConfig(durability_dir=str(tmp_path)), device="cpu"),
+        "shard": lambda: ResolveService(shard=object(), device="cpu"),
+        "string_matcher": lambda: ResolveService(
+            ServiceConfig(matcher="hungarian"), device="cpu"),
+        "gcache_capacity": lambda: ResolveService(
+            ServiceConfig(gcache_capacity=2), device="cpu"),
+        "recover": lambda: ResolveService.recover(str(tmp_path)),
+    }[what]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make()
