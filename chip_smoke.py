@@ -22,9 +22,24 @@
    digests must equal the reference table ``EXPECTED_STREAM``; the
    one-batch gids must equal phase 3's smp gids.  Prints each run's wall
    time, ingest p50/p99 and the time of each ingest stage (tracing spans).
-5. Profile: the first 100 MMP evaluations once more under
+5. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+   layers, weights drawn on the CPU with ``init_params``, a prefill of 4
+   prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
+   CPU's tokens; the largest logit difference over the largest logit must
+   stay within 2e-2, and greedy tokens must agree wherever the CPU's
+   top-1/top-2 margin is above twice that difference.  Then serving at full
+   depth (32 layers, weights drawn on the card):
+   ``repro_torch.launch.serve.main`` with 8 requests of 32 tokens in
+   batches of 4, 16 new tokens each, and one prompt of 4,096 tokens through
+   an ``Engine`` of batch 1.  Logits must be finite, every request gets 16
+   tokens, and ``flash_attn`` must launch exactly 32 x 2 + 32 = 96 times
+   (one launch a layer a prefill; decode attention is plain tensor code).
+   Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
+   device's busy share of one more serving run of each kind under
+   ``torch.profiler``.
+6. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-6. The card's name and power limit, the kernel list as one JSON line, and
+7. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -33,6 +48,8 @@ nothing of JAX or of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,6 +64,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks: HBM3 bytes/s and float32 (non-tensor-core) flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# dense bf16 tensor-core flop/s (H100 SXM data sheet)
+PEAK_BF16_FLOPS = 989e12
 # int32 min/compare outside the tensor cores: 132 SMs x 64 INT32 lanes
 # an SM a clock x 1.98 GHz boost clock (H100 SXM, Hopper white paper)
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
@@ -105,18 +124,24 @@ KERNELS = {
         source="src/repro_torch/csrc/minhash.cu",
         replaces="src/repro/kernels/minhash/kernel.py:59",
     ),
+    "flash_attn": dict(
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:108",
+    ),
 }
 
 
 def _wrappers() -> dict:
     """Each ported kernel's wrapper, which carries its launch counter."""
+    from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.icm_sweep import ops as icm
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
     from repro_torch.kernels.ngram_sim import ops as sim
 
     return {"icm_sweep": icm.sweep_batched, "ngram_sim": sim.sim_above,
-            "mln_score": score.score_sets, "minhash": mh.minhash}
+            "mln_score": score.score_sets, "minhash": mh.minhash,
+            "flash_attn": flash.attention}
 
 
 def _zero_counts() -> None:
@@ -210,6 +235,7 @@ def phase_kernels(dev) -> list[dict]:
     """Each kernel vs its plain version on the card at the main path's shapes."""
     import torch
 
+    from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.icm_sweep import ops as icm
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
@@ -221,19 +247,20 @@ def phase_kernels(dev) -> list[dict]:
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS):
+    def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS,
+              iters=50):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if tol is None:  # exact: integer outputs
             require(torch.equal(got, want), f"{name} {shape}: kernel and plain version differ")
         else:
             np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
-        ms, call_ms = time_ms(kernel)
+        ms, call_ms = time_ms(kernel, iters)
         row = dict(
             name=name, shape=shape,
             max_abs_err=float((got.double() - want.double()).abs().max()),
-            ms=ms, call_ms=call_ms, plain_ms=time_ms(plain)[0],
-            library_ms=None if library is None else time_ms(library)[0],
+            ms=ms, call_ms=call_ms, plain_ms=time_ms(plain, iters)[0],
+            library_ms=None if library is None else time_ms(library, iters)[0],
         )
         row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, peak)
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
@@ -295,6 +322,43 @@ def phase_kernels(dev) -> list[dict]:
             None,  # exact
             # ops: one int32 min for each present shingle of each row and hash
             4 * (N * D + H * D + N * H), H * int(present.sum()), PEAK_INT32_OPS,
+        )
+
+    # the serving path's prefills in bf16 first (Yi-6B's requests, its long
+    # prompt, the embedding matcher's encoder), then the reference test's f32
+    # shapes, a ragged S = T, and a causal S < T
+    for B, S, T, H, hkv, hd, dtype, causal in [
+        (4, 32, 32, 32, 4, 128, torch.bfloat16, True),
+        (1, 4096, 4096, 32, 4, 128, torch.bfloat16, True),
+        (8, 32, 32, 4, 4, 8, torch.bfloat16, True),
+        *[(2, S_, S_, H_, k_, d_, torch.float32, c)
+          for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
+          for c in (True, False)],
+        (2, 100, 100, 4, 2, 16, torch.float32, True),
+        (2, 40, 100, 4, 2, 8, torch.float32, True),
+    ]:
+        q, k, v = (
+            put(rng.standard_normal((B, n, h, hd)).astype(np.float32)).to(dtype)
+            for n, h in [(S, H), (T, hkv), (T, hkv)]
+        )
+        scale = 1.0 / np.sqrt(hd)
+        # (row, col) score pairs this input needs: all, or col <= row under the mask
+        pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
+        esize = q.element_size()
+        check(
+            "flash_attn",
+            f"B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{str(dtype)[6:]},"
+            + ("causal" if causal else "full"),
+            lambda: flash.attention(q, k, v, scale, causal=causal),
+            lambda: flash.attention_plain(q, k, v, scale, causal=causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, scale=scale, enable_gqa=True),
+            dict(rtol=2e-3, atol=2e-3),
+            esize * (B * S * H * hd + 2 * B * T * hkv * hd) + 4 * B * S * H * hd,
+            4 * B * H * hd * pairs,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+            iters=10 if S * T > 1 << 20 else 50,
         )
     return rows
 
@@ -461,6 +525,194 @@ def phase_stream(dev, resolved) -> dict:
     return total
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 4) -> dict:
+    """One model on ``dev`` and on the CPU, from weights drawn on the CPU: a
+    prefill and ``steps`` greedy decode steps, the device teacher-forced with
+    the CPU's tokens.  Returns the relative logit error and the tokens compared."""
+    import torch
+
+    from repro_torch.models.param import init_params
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    tree = init_params(api.param_specs(), seed=0, device=cpu)
+    models = [(cpu, api.load(tree)), (dev, api.load(tree).to(dev))]
+    del tree
+    rng = np.random.default_rng(13)
+    toks = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
+    s_max = prompt_len + steps
+    runs = []  # per run: logits of each step, (B, V) f32 on the CPU
+    for d, model in models:
+        out, cache = api.prefill(model, torch.as_tensor(toks, device=d), s_max)
+        seq = [out[:, -1].float().cpu()]
+        for t in range(steps):
+            fed = (runs[0] if runs else seq)[t].argmax(-1)  # the CPU's greedy token
+            batch_in = {"tokens": fed.to(torch.int32)[:, None].to(d),
+                        "pos": torch.full((batch,), prompt_len + t, dtype=torch.int32, device=d)}
+            out, cache = api.decode(model, cache, batch_in)
+            seq.append(out[:, 0].float().cpu())
+        _sync(d)
+        runs.append(seq)
+    want, got = torch.stack(runs[0]), torch.stack(runs[1])  # (steps+1, B, V)
+    require(bool(torch.isfinite(got).all()), "device logits are not finite")
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    require(bool(same[decided].all()),
+            f"greedy tokens differ where the CPU's margin is above {2 * err:.4g}")
+    return dict(rel=rel, err=err, compared=int(decided.sum()), tokens=int(decided.numel()),
+                seconds=time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def engine_probe(dev):
+    """Time every prefill and decode call of ``Engine`` (synchronized) and
+    check that its logits are finite; restores the engine on exit."""
+    import torch
+
+    from repro_torch.serve.engine import Engine
+
+    rec = {"prefill_ms": [], "decode_ms": [], "finite": True}
+    originals = {"_prefill": Engine._prefill, "_decode": Engine._decode}
+
+    def timed(fn, key):
+        def call(self, *args):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = fn(self, *args)
+            _sync(dev)
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            rec["finite"] &= bool(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    Engine._prefill = timed(originals["_prefill"], "prefill_ms")
+    Engine._decode = timed(originals["_decode"], "decode_ms")
+    try:
+        yield rec
+    finally:
+        for name, fn in originals.items():
+            setattr(Engine, name, fn)
+
+
+def _device_busy(dev, run) -> str:
+    """Device busy share of ``run()`` under torch.profiler (kernels and copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return "not measured (no device)"
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    if busy == 0:
+        return "not measured (the profiler saw no device activity)"
+    return f"{busy:.3f} s of {wall:.3f} s ({100 * busy / wall:.1f}%)"
+
+
+def lm_serve(dev, serve_argv: list[str], long_cfg, long_len: int, max_new: int) -> dict:
+    """``launch.serve.main(serve_argv)``, then one ``long_len``-token prompt
+    through an ``Engine`` of batch 1 over ``long_cfg`` with random weights."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Engine, demo_engine
+
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with engine_probe(dev) as rec:
+        t0 = time.perf_counter()
+        outs = serve.main(serve_argv)
+        out["requests_s"] = time.perf_counter() - t0
+    require(rec["finite"], "serving gave logits that are not finite")
+    require(all(len(o) == max_new for o in outs), f"not every request got {max_new} tokens")
+    out["requests"] = dict(rec, n=len(outs), tokens=sum(map(len, outs)))
+
+    engine = demo_engine(get_model(long_cfg), batch=1, s_max=long_len + max_new, device=dev)
+    if dev.type == "cuda":
+        out["peak_init_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompt = np.random.default_rng(1).integers(1, long_cfg.vocab_size - 1, long_len).astype(np.int32)
+    with engine_probe(dev) as rec:
+        t0 = time.perf_counter()
+        long_out = engine.generate([prompt], max_new=max_new)
+        out["long_s"] = time.perf_counter() - t0
+    require(rec["finite"], "the long prompt gave logits that are not finite")
+    require([len(o) for o in long_out] == [max_new], f"the long prompt did not get {max_new} tokens")
+    out["long"] = dict(rec, n=1, tokens=max_new)
+    if dev.type == "cuda":
+        out["peak_long_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["launches"] = _read_counts()
+    # the device's busy share of one more serving run of each kind (not counted above)
+    requests = np.random.default_rng(0).integers(1, long_cfg.vocab_size - 1, (4, 32), np.int32)
+    batch4 = Engine(engine.api, engine.params, 4, 32 + max_new, device=dev)
+    out["busy_requests"] = _device_busy(dev, lambda: batch4.generate(list(requests), max_new))
+    out["busy_long"] = _device_busy(dev, lambda: engine.generate([prompt], max_new=max_new))
+    return out
+
+
+def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096,
+             max_new: int = 16) -> dict:
+    """Yi-6B at full width on the card: against the CPU at ``cmp_layers``
+    layers, then served at full depth.  Returns the launch counts of the
+    serving part."""
+    from repro_torch.configs.base import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cmp = lm_card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=cmp_layers))
+    log(f"[lm] {cfg.name} at {cmp_layers} layers, card vs CPU: max |dlogit| {cmp['err']:.4g}, "
+        f"relative {cmp['rel']:.3g} (limit 2e-2); greedy tokens compared where the CPU's "
+        f"margin > {2 * cmp['err']:.4g}: {cmp['compared']} of {cmp['tokens']}, all equal "
+        f"({cmp['seconds']:.1f} s)")
+    require(cmp["rel"] <= 2e-2, f"card vs CPU logits differ by {cmp['rel']:.3g} > 2e-2")
+    require(cmp["compared"] >= 1, "no greedy token was decided clearly enough to compare")
+
+    _zero_counts()
+    argv = ["--arch", arch, "--requests", "8", "--batch", "4", "--prompt-len", "32",
+            "--max-new", str(max_new)]
+    res = lm_serve(dev, argv, cfg, long_len, max_new)
+    launches = res["launches"]
+    want = cfg.n_layers * (2 + 1)  # one launch a layer for each of 3 prefills
+    require(launches["flash_attn"] == want,
+            f"flash_attn launched {launches['flash_attn']} times, expected {want}")
+    req, lng = res["requests"], res["long"]
+    log(f"[lm] serve.main {' '.join(argv)}: {req['n']} requests, {req['tokens']} tokens in "
+        f"{res['requests_s']:.2f} s (weights drawn on the card included); prefill (4 x 32) ms "
+        + ", ".join(f"{t:.2f}" for t in req["prefill_ms"])
+        + f"; decode ms a step (batch 4) median {np.median(req['decode_ms']):.2f}, "
+        f"{4e3 / np.median(req['decode_ms']):.1f} tokens/s")
+    log(f"[lm] long prompt: {long_len} tokens + {max_new} new in {res['long_s']:.2f} s; prefill "
+        f"{lng['prefill_ms'][0]:.1f} ms ({long_len / lng['prefill_ms'][0] * 1e3:.0f} tokens/s); "
+        f"decode ms a token median {np.median(lng['decode_ms']):.2f} "
+        f"({1e3 / np.median(lng['decode_ms']):.1f} tokens/s)")
+    log(f"[lm] peak memory: {res['peak_init_bytes'] / 2**30:.2f} GiB with the weights' f32 draw, "
+        f"{res['peak_long_bytes'] / 2**30:.2f} GiB serving the long prompt "
+        f"(torch.cuda.max_memory_allocated); device busy: requests {res['busy_requests']}, "
+        f"long prompt {res['busy_long']}")
+    log(f"[lm] launches in the serving part: {launches}; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     """Where the matcher's time goes: the first ``max_evals`` MMP evaluations
     (cover excluded) once more under torch.profiler, device activity only;
@@ -517,6 +769,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     launches, resolved = phase_pipeline(dev)
     stream_launches = phase_stream(dev, resolved)
+    lm_launches = phase_lm(dev)
     phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
@@ -532,8 +785,9 @@ def main() -> int:
         main_shape = mine[0]  # the first shape listed is the main path's per-eval call
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=launches[name] + stream_launches[name],
-            launches_by_path={"pipeline": launches[name], "stream": stream_launches[name]},
+            launches=launches[name] + stream_launches[name] + lm_launches[name],
+            launches_by_path={"pipeline": launches[name], "stream": stream_launches[name],
+                              "lm": lm_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

@@ -1,4 +1,5 @@
-"""Carry state across from numpy: MLN weights, packed covers, groundings.
+"""Carry state across from numpy: MLN weights, packed covers, groundings,
+LM parameters.
 
 Every function reads its source's attributes by name and copies them as
 numpy arrays, so state made by any producer with the same field names —
@@ -9,11 +10,13 @@ importing that producer.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.cover import Cover, PackedCover
 from repro_torch.core.global_grounding import GlobalGrounding
 from repro_torch.core.mln import MLNWeights
 from repro_torch.core.types import NeighborhoodBatch
+from repro_torch.kernels.common import resolve_device
 
 BATCH_FIELDS = (
     "entity_ids", "entity_mask", "coauthor", "sim_level", "pair_gid", "pair_mask",
@@ -59,3 +62,19 @@ def grounding_from_arrays(src) -> GlobalGrounding:
         coup_q=np.array(src.coup_q, dtype=np.int32),
         w_co=float(src.w_co),
     )
+
+
+def lm_params_from_numpy(cfg, tree, device=None):
+    """The port's model for ``cfg`` holding the values of ``tree``: a
+    parameter tree shaped as the reference's (nested dicts, the stacked
+    layer axis first) with numpy leaves.  ``device=None`` means CUDA."""
+    from repro_torch.models.registry import get_model
+
+    dev = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        return torch.tensor(np.asarray(t, dtype=np.float32), device=dev)
+
+    return get_model(cfg).load(convert(tree))

@@ -40,7 +40,9 @@ def resolve_device(device=None) -> torch.device:
     Never falls back to the CPU on its own: without a GPU, asking for
     CUDA raises, and the caller has to pass ``device="cpu"``.  On CUDA
     float32 products stay in full float32: the matcher decides against
-    ``TIE_EPS = 1e-5`` and TF32 would round its weights.
+    ``TIE_EPS = 1e-5`` and TF32 would round its weights.  bfloat16
+    products (the LM stack's projections) accumulate in float32, as the
+    reference's ``preferred_element_type`` asks.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -51,6 +53,7 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         if torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
                 "float32 matmul precision is "

@@ -1,0 +1,78 @@
+"""Grouped-query softmax attention: CUDA flash kernel and plain version.
+
+    ``attention(q, k, v, scale, causal=True)``:
+    q (B, S, H, hd), k/v (B, T, Hkv, hd) with H a multiple of Hkv
+    (GQA groups of H // Hkv query heads per KV head) -> (B, S, H*hd)
+    f32.  Inputs are bfloat16 or float32; scores, softmax and the
+    output accumulate in f32.  Causal masking keeps ``row >= col``
+    with both indices counted from 0 (top-left aligned, also when
+    S != T).
+
+Every prefill of the LM stack (``models.layers.attention_train``) goes
+through it.  Kernel: ``csrc/flash_attn.cu`` (replaces the Pallas kernel
+``src/repro/kernels/flash_attn/kernel.py``); the source says what bounds
+it on the H100.  CPU tensors go to :func:`attention_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import check_operand
+
+NEG_INF = -1e30
+
+# head dims the kernel is instantiated for: 128 (Yi-6B), 64 (Qwen1.5),
+# 8 and 16 (the embedding matcher's encoder and the smoke configs), 32
+HEAD_DIMS = (8, 16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_plain(q, k, v, scale, *, causal: bool = True):
+    """Plain PyTorch version: the full (S, T) scores in f32."""
+    B, S, H, hd = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    qg = q.reshape(B, S, hkv, g, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
+    if causal:
+        rows = torch.arange(S, device=q.device)[:, None]
+        cols = torch.arange(T, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return o.reshape(B, S, H * hd)
+
+
+def attention(q, k, v, scale, *, causal: bool = True):
+    """q (B, S, H, hd), k/v (B, T, Hkv, hd) -> (B, S, H*hd) f32."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, causal=causal)
+    B, S, H, hd = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q has dtype {q.dtype}; the kernel takes float32 or bfloat16")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of the kernel's {HEAD_DIMS}")
+    if hkv == 0 or H % hkv:
+        raise ValueError(f"{H} query heads do not form groups over {hkv} KV heads")
+    check_operand("q", q, (B, S, H, hd), q.device, dtype=q.dtype)
+    check_operand("k", k, (B, T, hkv, hd), q.device, dtype=q.dtype)
+    check_operand("v", v, (B, T, hkv, hd), q.device, dtype=q.dtype)
+    out = torch.empty((B, S, H * hd), dtype=torch.float32, device=q.device)
+    if B * S * H == 0:
+        return out
+    if T == 0:
+        raise ValueError("attention over zero keys")
+    rc = build.library().repro_flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check("flash_attn", rc)
+    attention.launches += 1
+    return out
+
+
+attention.launches = 0

@@ -1,1 +1,1 @@
-"""The ``ngram_sim`` kernel: wrapper and plain version in ``ops``."""
+"""The ``minhash`` kernel: wrapper and plain version in ``ops``."""

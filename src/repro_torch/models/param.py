@@ -1,0 +1,118 @@
+"""Parameter declarations: shapes, axis names and init laws.
+
+Models declare their parameters as a tree (nested ``dict``) of
+:class:`PSpec`.  From that one declaration come
+
+* ``init_params``  — materialized tensors on a device, one explicit
+  ``torch.Generator`` per leaf;
+* ``param_count``  — the exact parameter count.
+
+``PSpec.spec`` names the logical mesh axes of each dimension as a plain
+tuple (``("model", None)``); one device has no mesh, so nothing reads
+it yet.  The mesh and dry-run machinery of the reference
+(``abstract_params``, ``filter_spec``, ``shardings``) waits for the
+sharded slices (``ROADMAP.md`` Queue 1 items 9 and 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    """One parameter tensor: shape, logical axes, initialization."""
+
+    shape: tuple[int, ...]
+    spec: tuple = ()
+    init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'embed' | 'ssm_dt' | 'ssm_a'
+    scale: float | None = None  # None -> 1/sqrt(fan_in)
+    dtype: Any = torch.float32
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, PSpec)
+
+
+def spec_tree_map(fn: Callable[[PSpec], Any], tree):
+    """Apply ``fn`` to every PSpec of a nested dict, keeping its structure."""
+    if _is_leaf(tree):
+        return fn(tree)
+    return {k: spec_tree_map(fn, v) for k, v in tree.items()}
+
+
+def leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order (JAX's flattening order)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+
+
+def stack(n: int, tree):
+    """Prepend a stacked-layer axis of size n to every PSpec in a tree."""
+    return spec_tree_map(
+        lambda ps: dataclasses.replace(ps, shape=(n, *ps.shape), spec=(None, *ps.spec)),
+        tree,
+    )
+
+
+def _leaf_seed(seed: int, index: int) -> int:
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
+
+
+def _materialize(ps: PSpec, gen: torch.Generator, device) -> torch.Tensor:
+    f32 = torch.float32
+    if ps.init == "zeros":
+        return torch.zeros(ps.shape, dtype=ps.dtype, device=device)
+    if ps.init == "ones":
+        return torch.ones(ps.shape, dtype=ps.dtype, device=device)
+    if ps.init == "ssm_a":
+        # mamba A_log init: log(1..N) broadcast over channels
+        n = ps.shape[-1]
+        a = torch.log(torch.arange(1, n + 1, dtype=f32, device=device))
+        return a.expand(ps.shape).to(ps.dtype).clone()
+    if ps.init == "ssm_dt":
+        # dt bias ~ softplus^-1 of uniform(1e-3, 1e-1)
+        u = torch.rand(ps.shape, generator=gen, dtype=f32, device=device) * (1e-1 - 1e-3) + 1e-3
+        return torch.log(torch.expm1(u)).to(ps.dtype)
+    fan_in = ps.shape[-2] if len(ps.shape) >= 2 else max(ps.shape[-1], 1)
+    if ps.init == "embed":
+        fan_in = 1.0
+    scale = ps.scale if ps.scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(ps.shape, generator=gen, dtype=f32, device=device)
+    return w.mul_(scale).to(ps.dtype)
+
+
+def init_params(tree, seed: int = 0, device="cpu"):
+    """Materialize a PSpec tree into tensors on ``device``.
+
+    Leaf ``i`` (in sorted-key order) draws from its own generator on the
+    device, seeded from ``(seed, i)``, under the reference's init laws:
+    normal with scale 1/sqrt(fan_in), embeddings at 0.02, zeros, ones.
+    The draws are not JAX's: tests that need the reference's weights
+    carry them across (``interop.lm_params_from_numpy``).
+    """
+    device = torch.device(device)
+    index = iter(range(len(leaves(tree))))
+
+    def walk(t):
+        if _is_leaf(t):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_leaf_seed(seed, next(index)))
+            return _materialize(t, gen, device)
+        return {k: walk(t[k]) for k in sorted(t)}
+
+    return walk(tree)
+
+
+def param_count(tree) -> int:
+    return sum(ps.size for ps in leaves(tree))

@@ -40,7 +40,7 @@ def test_port_imports_without_jax_or_reference():
         cwd=str(ROOT / "tests"),
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 60  # every module was imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -71,6 +71,21 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         build_cover(ds.entities, ds.relations)
     assert MLNMatcher(device="cpu").device.type == "cpu"
 
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Engine, demo_engine
+
+    api = get_model(smoke_config("yi_6b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo_engine(api)
+    cpu_engine = demo_engine(api, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(api, cpu_engine.params, batch=2, s_max=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "yi_6b", "--smoke"])
+    assert cpu_engine.device.type == "cpu"
+
 
 def test_parallel_engine_not_ported_yet():
     from repro_torch.core import pipeline
@@ -81,11 +96,15 @@ def test_parallel_engine_not_ported_yet():
         pipeline.resolve(ds.entities, ds.relations, parallel=True, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score", "minhash"])
+KERNELS = ["icm_sweep", "ngram_sim", "mln_score", "minhash", "flash_attn"]
+
+
+@pytest.mark.parametrize("name", KERNELS)
 def test_wrappers_use_plain_version_only_for_cpu_tensors(name):
     """A CPU tensor runs the plain version and launches nothing."""
     import numpy as np
 
+    from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.icm_sweep import ops as icm
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
@@ -99,6 +118,8 @@ def test_wrappers_use_plain_version_only_for_cpu_tensors(name):
         "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5), torch.float32),
         "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8)), torch.float32),
         "minhash": (mh.minhash, (t(5, 16), table), torch.int32),
+        "flash_attn": (flash.attention, (t(2, 8, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16), 0.25),
+                       torch.float32),
     }[name]
     before = wrapper.launches
     out = wrapper(*args)
@@ -106,10 +127,11 @@ def test_wrappers_use_plain_version_only_for_cpu_tensors(name):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("name", ["icm_sweep", "ngram_sim", "mln_score", "minhash"])
+@pytest.mark.parametrize("name", KERNELS)
 def test_wrappers_raise_on_non_cuda_devices(name):
     """Off the CPU a wrapper launches its CUDA kernel or raises: a tensor on
     another device never reaches the kernel and never takes the plain path."""
+    from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.icm_sweep import ops as icm
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
@@ -121,6 +143,7 @@ def test_wrappers_raise_on_non_cuda_devices(name):
         "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5)),
         "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
         "minhash": (mh.minhash, (t(5, 16), t(8, 16, dtype=torch.int32))),
+        "flash_attn": (flash.attention, (t(2, 8, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16), 0.25)),
     }[name]
     before = wrapper.launches
     with pytest.raises(ValueError, match="CUDA"):

@@ -14,9 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.common import assert_allclose  # noqa: E402
+from repro.kernels.flash_attn import kernel as ref_flash  # noqa: E402
+from repro.kernels.flash_attn import ref as ref_attention  # noqa: E402
 from repro.kernels.icm_sweep import kernel as ref_icm  # noqa: E402
 from repro.kernels.mln_score import kernel as ref_score  # noqa: E402
 from repro.kernels.ngram_sim import kernel as ref_sim  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as flash  # noqa: E402
 from repro_torch.kernels.icm_sweep import ops as icm  # noqa: E402
 from repro_torch.kernels.mln_score import ops as score  # noqa: E402
 from repro_torch.kernels.ngram_sim import ops as sim  # noqa: E402
@@ -122,3 +125,43 @@ def test_tiling_helpers_match_reference(n):
     assert common.pick_tile(n) == ref_common.pick_tile(n)
     assert common.pick_tile(n, 32, 4) == ref_common.pick_tile(n, 32, 4)
     assert common.round_up(n, 8) == ref_common.round_up(n, 8)
+
+
+# (S, T, H, Hkv, hd): the shapes of tests/test_kernels.py::test_flash_attn, a
+# ragged S = T = 100, and S < T (causal stays top-left aligned)
+FLASH_SHAPES = [
+    (128, 128, 4, 2, 32), (256, 256, 2, 2, 64), (192, 192, 4, 1, 32),
+    (100, 100, 4, 2, 16), (40, 100, 4, 2, 8),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,H,hkv,hd", FLASH_SHAPES)
+def test_flash_attn(S, T, H, hkv, hd, causal):
+    """The plain version vs the jnp oracle (same math in f32: 1e-5) and vs the
+    Pallas kernel in interpret mode (online softmax: 2e-3, as in test_kernels)."""
+    rng = np.random.default_rng(S + H)
+    B = 2
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, T, hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, T, hkv, hd)).astype(np.float32)
+    scale = 1.0 / np.sqrt(hd)
+    got = flash.attention(_t(q), _t(k), _t(v), scale, causal=causal)
+    assert tuple(got.shape) == (B, S, H * hd) and got.dtype == torch.float32
+    want = ref_attention.attention(q, k, v, scale, causal=causal)
+    assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    pallas = ref_flash.flash_attention(q, k, v, scale, causal=causal, interpret=True)
+    assert_allclose(got.numpy(), pallas, rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attn_bf16_inputs():
+    """bf16 inputs (what the model gives) are upcast and accumulate in f32."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in [(2, 32, 8, 16), (2, 32, 2, 16), (2, 32, 2, 16)])
+    qb, kb, vb = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash.attention(qb, kb, vb, 0.25, causal=True)
+    want = ref_attention.attention(*(jax.numpy.asarray(a).astype(jax.numpy.bfloat16)
+                                     for a in (q, k, v)), 0.25, causal=True)
+    assert got.dtype == torch.float32
+    assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
