@@ -125,7 +125,10 @@ KERNELS = {
         replaces="src/repro/kernels/minhash/kernel.py:59",
     ),
     "flash_attn": dict(
-        source="src/repro_torch/csrc/flash_attn.cu",
+        # the tensor-core kernel carries the serving path (bf16, hd 64/128);
+        # flash_attn.cu takes f32 inputs and hd 8/16/32
+        source="src/repro_torch/csrc/flash_attn_sm90.cu",
+        sources=["src/repro_torch/csrc/flash_attn_sm90.cu", "src/repro_torch/csrc/flash_attn.cu"],
         replaces="src/repro/kernels/flash_attn/kernel.py:108",
     ),
 }
@@ -147,6 +150,7 @@ def _wrappers() -> dict:
 def _zero_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+    _wrappers()["flash_attn"].wgmma_launches = 0
 
 
 def _read_counts() -> dict:
@@ -214,11 +218,12 @@ def bound(n_bytes: int, ops: int, peak: float = PEAK_F32_FLOPS) -> tuple[float, 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build() -> float:
+def phase_build(ptxas_verbose: bool = False) -> float:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     path = build.library_path()
+    build.build(ptxas_verbose=ptxas_verbose)
     build.library()
     secs = time.perf_counter() - t0
     log(f"[build] {path.relative_to(ROOT)} in {secs:.1f} s")
@@ -272,7 +277,10 @@ def phase_kernels(dev) -> list[dict]:
         rows.append(row)
 
     f32 = dict(rtol=1e-5, atol=1e-5)
-    for B, S, P in [(1, 1, 496), (1, 496, 496), (192, 1, 496)]:
+    # the k=32 bin's closure, entailment and batch sweeps, then the other
+    # bins' P (k=16: 120, k=24: 276) at S = 1 and S = P
+    for B, S, P in [(1, 1, 496), (1, 496, 496), (192, 1, 496),
+                    (1, 1, 120), (1, 120, 120), (1, 1, 276), (1, 276, 276)]:
         u = put(rng.standard_normal((B, P)).astype(np.float32))
         C = put(_symmetric_coupling(rng, B, P))
         X = put((rng.random((B, S, P)) < 0.3).astype(np.float32))
@@ -325,12 +333,14 @@ def phase_kernels(dev) -> list[dict]:
         )
 
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
-    # prompt, the embedding matcher's encoder), then the reference test's f32
-    # shapes, a ragged S = T, and a causal S < T
+    # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
+    # 64), then the reference test's f32 shapes, a ragged S = T, and a
+    # causal S < T
     for B, S, T, H, hkv, hd, dtype, causal in [
         (4, 32, 32, 32, 4, 128, torch.bfloat16, True),
         (1, 4096, 4096, 32, 4, 128, torch.bfloat16, True),
         (8, 32, 32, 4, 4, 8, torch.bfloat16, True),
+        (1, 2048, 2048, 16, 16, 64, torch.bfloat16, True),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
@@ -345,10 +355,12 @@ def phase_kernels(dev) -> list[dict]:
         # (row, col) score pairs this input needs: all, or col <= row under the mask
         pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
         esize = q.element_size()
+        route = flash.route(dtype, hd)
+        before = flash.attention.wgmma_launches
         check(
             "flash_attn",
             f"B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{str(dtype)[6:]},"
-            + ("causal" if causal else "full"),
+            + ("causal" if causal else "full") + f",{route}",
             lambda: flash.attention(q, k, v, scale, causal=causal),
             lambda: flash.attention_plain(q, k, v, scale, causal=causal),
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -360,6 +372,8 @@ def phase_kernels(dev) -> list[dict]:
             PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
             iters=10 if S * T > 1 << 20 else 50,
         )
+        require((flash.attention.wgmma_launches > before) == (route == "wgmma"),
+                f"flash_attn at hd={hd}, {dtype} did not take the {route} route")
     return rows
 
 
@@ -662,6 +676,7 @@ def lm_serve(dev, serve_argv: list[str], long_cfg, long_len: int, max_new: int) 
     if dev.type == "cuda":
         out["peak_long_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["launches"] = _read_counts()
+    out["wgmma_launches"] = _wrappers()["flash_attn"].wgmma_launches
     # the device's busy share of one more serving run of each kind (not counted above)
     requests = np.random.default_rng(0).integers(1, long_cfg.vocab_size - 1, (4, 32), np.int32)
     batch4 = Engine(engine.api, engine.params, 4, 32 + max_new, device=dev)
@@ -695,6 +710,8 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
     want = cfg.n_layers * (2 + 1)  # one launch a layer for each of 3 prefills
     require(launches["flash_attn"] == want,
             f"flash_attn launched {launches['flash_attn']} times, expected {want}")
+    wgmma = res["wgmma_launches"]
+    require(wgmma == want, f"{wgmma} of {want} flash_attn launches took the tensor-core route")
     req, lng = res["requests"], res["long"]
     log(f"[lm] serve.main {' '.join(argv)}: {req['n']} requests, {req['tokens']} tokens in "
         f"{res['requests_s']:.2f} s (weights drawn on the card included); prefill (4 x 32) ms "
@@ -709,7 +726,8 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
         f"{res['peak_long_bytes'] / 2**30:.2f} GiB serving the long prompt "
         f"(torch.cuda.max_memory_allocated); device busy: requests {res['busy_requests']}, "
         f"long prompt {res['busy_long']}")
-    log(f"[lm] launches in the serving part: {launches}; phase {time.perf_counter() - t0:.1f} s")
+    log(f"[lm] launches in the serving part: {launches} (flash_attn on the tensor cores: "
+        f"{wgmma}); phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -749,7 +767,15 @@ def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     )
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ptxas-verbose", action="store_true",
+                    help="print each kernel's registers, spills and shared memory as it builds")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build and kernels); prints no result line")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -765,8 +791,10 @@ def main() -> int:
 
     dev = resolve_device("cuda:0")
     t0 = time.perf_counter()
-    phase_build()
+    phase_build(args.ptxas_verbose)
     rows = phase_kernels(dev)
+    if args.kernels_only:
+        return 0
     launches, resolved = phase_pipeline(dev)
     stream_launches = phase_stream(dev, resolved)
     lm_launches = phase_lm(dev)
@@ -784,7 +812,9 @@ def main() -> int:
         mine = [r for r in rows if r["name"] == name]
         main_shape = mine[0]  # the first shape listed is the main path's per-eval call
         kernels.append(dict(
-            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            name=name, route="cuda", source=meta["source"],
+            **({"sources": meta["sources"]} if "sources" in meta else {}),
+            replaces=meta["replaces"],
             launches=launches[name] + stream_launches[name] + lm_launches[name],
             launches_by_path={"pipeline": launches[name], "stream": stream_launches[name],
                               "lm": lm_launches[name]},

@@ -1,5 +1,4 @@
-// Shared-memory tiled float32 product, shared by the icm_sweep and
-// ngram_sim kernels.
+// Shared-memory tiled float32 product of the ngram_sim kernel.
 //
 // One block computes a BM x BN tile of A(M, K) @ op(B), where op(B) is
 // B(K, N) or, with B_TRANS, the transpose of B(N, K).  All three are

@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_mln_score": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_minhash": [_P, _P, _P, _I, _I, _I, _P],
     "repro_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "repro_flash_attn_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -61,8 +62,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources in parallel and link them; returns the library path."""
+def build(ptxas_verbose: bool = False) -> Path:
+    """Compile the sources in parallel and link them; returns the library path.
+
+    With ``ptxas_verbose`` each kernel's registers, spills and shared memory
+    (``-Xptxas -v``) are printed as the sources compile.
+    """
     target = library_path()
     if target.exists():
         return target
@@ -72,13 +77,17 @@ def build() -> Path:
         objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
         procs = [
             subprocess.Popen(
-                [exe, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+                [exe, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+                 "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for src, obj in zip(_sources(), objs)
         ]
         logs = [p.communicate()[0] for p in procs]
         failed = [(src.name, log) for src, p, log in zip(_sources(), procs, logs) if p.returncode]
+        if ptxas_verbose:
+            for src, log in zip(_sources(), logs):
+                print(f"--- {src.name}\n{log}", flush=True)
         if failed:
             raise RuntimeError(
                 "nvcc failed:\n" + "\n".join(f"--- {name}\n{log}" for name, log in failed)

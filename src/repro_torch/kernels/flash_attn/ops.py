@@ -9,9 +9,17 @@
     S != T).
 
 Every prefill of the LM stack (``models.layers.attention_train``) goes
-through it.  Kernel: ``csrc/flash_attn.cu`` (replaces the Pallas kernel
-``src/repro/kernels/flash_attn/kernel.py``); the source says what bounds
-it on the H100.  CPU tensors go to :func:`attention_plain`.
+through it.  Two CUDA kernels replace the Pallas kernel
+``src/repro/kernels/flash_attn/kernel.py``; :func:`route` picks one from
+the input's dtype and head dim alone:
+
+* ``"wgmma"``, ``csrc/flash_attn_sm90.cu``: bf16 inputs with hd 64 or 128
+  (Yi-6B's and Qwen1.5's prefills), on the tensor cores with TMA loads;
+* ``"fma"``, ``csrc/flash_attn.cu``: every other input it takes (f32, and
+  hd 8, 16 or 32), with float32 FMAs.
+
+Each source says what bounds it on the H100.  CPU tensors go to
+:func:`attention_plain`.
 """
 
 from __future__ import annotations
@@ -26,7 +34,14 @@ NEG_INF = -1e30
 # head dims the kernel is instantiated for: 128 (Yi-6B), 64 (Qwen1.5),
 # 8 and 16 (the embedding matcher's encoder and the smoke configs), 32
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# head dims of the tensor-core kernel (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel that takes a call: ``"wgmma"`` or ``"fma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
 def attention_plain(q, k, v, scale, *, causal: bool = True):
@@ -65,14 +80,26 @@ def attention(q, k, v, scale, *, causal: bool = True):
         return out
     if T == 0:
         raise ValueError("attention over zero keys")
-    rc = build.library().repro_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check("flash_attn", rc)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route(q.dtype, hd) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned, as the TMA loads need")
+        rc = build.library().repro_flash_attn_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, hkv, hd, float(scale), int(causal), stream,
+        )
+        build.check("flash_attn (wgmma)", rc)
+        attention.wgmma_launches += 1
+    else:
+        rc = build.library().repro_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype], stream,
+        )
+        build.check("flash_attn", rc)
     attention.launches += 1
     return out
 
 
-attention.launches = 0
+attention.launches = 0  # every launch, both routes
+attention.wgmma_launches = 0  # the tensor-core route's share

@@ -165,3 +165,97 @@ def test_flash_attn_bf16_inputs():
                                      for a in (q, k, v)), 0.25, causal=True)
     assert got.dtype == torch.float32
     assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 16, "fma"), (torch.bfloat16, 8, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"), (torch.float32, 8, "fma"),
+])
+def test_flash_attn_route(dtype, hd, want):
+    """bf16 at hd 64 or 128 takes the tensor-core kernel; everything else the FMA one."""
+    assert flash.route(dtype, hd) == want
+
+
+def _bf16(a):
+    return torch.as_tensor(a).to(torch.bfloat16).float()
+
+
+def _emulate_wgmma_attention(q, k, v, scale, causal, split=True, bk=64):
+    """The tensor-core kernel's rounding on the CPU: bf16 inputs, f32 scores
+    in log2 units, an online softmax over key tiles of ``bk``, f32 row sums,
+    and P.V from bf16 P: ``P_hi + P_lo`` with ``split``, else ``P_hi`` alone."""
+    B, S, H, hd = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    qh = q.permute(0, 2, 1, 3)  # (B, H, S, hd)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    c = scale * float(np.log2(np.e))
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), flash.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, hd))
+    for k0 in range(0, T, bk):
+        cols = torch.arange(k0, min(k0 + bk, T))[None, :]
+        x = (qh @ kh[:, :, k0:k0 + bk].transpose(-1, -2)) * c
+        if causal:
+            x = torch.where(cols > rows, torch.tensor(flash.NEG_INF), x)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        vt = vh[:, :, k0:k0 + bk]
+        o = o * alpha + hi @ vt + (lo @ vt if split else 0)
+        m = m_new
+    o = o / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).reshape(B, S, H * hd)
+
+
+@pytest.mark.parametrize("B,S,H,hkv,hd", [
+    (4, 32, 32, 4, 128),  # Yi-6B's request prefill
+    (8, 32, 4, 4, 8),  # the embedding matcher's em_encoder
+])
+def test_flash_attn_wgmma_rounding_within_check(B, S, H, hkv, hd):
+    """The tensor-core kernel's rounding stays within chip_smoke's 2e-3 of the
+    f32 reference on bf16 inputs; with one bf16 P it errs far more."""
+    rng = np.random.default_rng(B * 1000 + hd)
+    q, k, v = (_bf16(rng.standard_normal(s).astype(np.float32))
+               for s in [(B, S, H, hd), (B, S, hkv, hd), (B, S, hkv, hd)])
+    scale = 1.0 / np.sqrt(hd)
+    want = np.asarray(ref_attention.attention(q.numpy(), k.numpy(), v.numpy(), scale,
+                                              causal=True))
+    got = _emulate_wgmma_attention(q, k, v, scale, causal=True).numpy()
+    assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    one = _emulate_wgmma_attention(q, k, v, scale, causal=True, split=False).numpy()
+    assert np.abs(one - want).max() > 10 * np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("S", [1, 496])
+def test_icm_sweep_plain_at_path_inputs(S):
+    """The plain version vs the Pallas sweep at the k=32 bin's inputs:
+    C = w_co * link (symmetric, binary link), binary X, P = 496."""
+    rng = np.random.default_rng(S)
+    P, w_co = 496, 2.46
+    link = np.triu(rng.random((P, P)) < 0.02, 1)
+    C = (w_co * (link | link.T)).astype(np.float32)
+    u = rng.standard_normal(P).astype(np.float32)
+    X = (rng.random((S, P)) < 0.3).astype(np.float32)
+    want = ref_icm.sweep_matrix(u, C, X, interpret=True)
+    got = icm.sweep_matrix(_t(u), _t(C), _t(X))
+    assert tuple(got.shape) == (S, P)
+    assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attn_wgmma_route_raises_off_cuda(hd):
+    """A bf16 call that would take the tensor-core kernel raises on a tensor
+    that is neither on the CPU nor on CUDA, and launches nothing."""
+    q, k, v = (torch.empty(s, device="meta", dtype=torch.bfloat16)
+               for s in [(1, 64, 8, hd), (1, 64, 2, hd), (1, 64, 2, hd)])
+    before = (flash.attention.launches, flash.attention.wgmma_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.attention(q, k, v, 0.125)
+    assert (flash.attention.launches, flash.attention.wgmma_launches) == before
