@@ -236,8 +236,9 @@ def _symmetric_coupling(rng, B, P, w_co=2.46, density=0.02):
     return (w_co * link).astype(np.float32)
 
 
-def phase_kernels(dev) -> list[dict]:
-    """Each kernel vs its plain version on the card at the main path's shapes."""
+def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
+    """Each kernel (or each named in ``only``) vs its plain version on the
+    card at the main path's shapes."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops as flash
@@ -248,6 +249,9 @@ def phase_kernels(dev) -> list[dict]:
 
     rng = np.random.default_rng(0)
     rows = []
+
+    def wanted(name):
+        return only is None or name in only
 
     def put(a):
         return torch.as_tensor(a, device=dev)
@@ -281,6 +285,8 @@ def phase_kernels(dev) -> list[dict]:
     # bins' P (k=16: 120, k=24: 276) at S = 1 and S = P
     for B, S, P in [(1, 1, 496), (1, 496, 496), (192, 1, 496),
                     (1, 1, 120), (1, 120, 120), (1, 1, 276), (1, 276, 276)]:
+        if not wanted("icm_sweep"):
+            break
         u = put(rng.standard_normal((B, P)).astype(np.float32))
         C = put(_symmetric_coupling(rng, B, P))
         X = put((rng.random((B, S, P)) < 0.3).astype(np.float32))
@@ -291,8 +297,13 @@ def phase_kernels(dev) -> list[dict]:
             4 * (B * P + B * P * P + 2 * B * S * P), 2 * B * S * P * P,
         )
 
-    # the canopy seed probe, the all-pairs form, and the streaming probe
-    for M, N, F in [(1, 1024, 128), (1024, 1842, 128), (64, 936, 128)]:
+    # the canopy seed probe, the all-pairs form, and the streaming probe;
+    # then the canopy's second chunk, the probe's two ends, a ragged F and
+    # an F that is not a multiple of 4 (the 4-byte copies)
+    for M, N, F in [(1, 1024, 128), (1024, 1842, 128), (64, 936, 128), (1, 818, 128),
+                    (64, 65, 128), (68, 1697, 128), (3, 70, 100), (5, 37, 30)]:
+        if not wanted("ngram_sim"):
+            break
         A = rng.random((M, F)).astype(np.float32)
         Bm = rng.random((N, F)).astype(np.float32)
         A = put(A / np.linalg.norm(A, axis=1, keepdims=True))
@@ -306,6 +317,8 @@ def phase_kernels(dev) -> list[dict]:
         )
 
     for B, S, P in [(192, 1, 496)]:
+        if not wanted("mln_score"):
+            break
         u = put(rng.standard_normal((B, P)).astype(np.float32))
         C = put(_symmetric_coupling(rng, B, P))
         X = put((rng.random((B, S, P)) < 0.3).astype(np.float32))
@@ -317,20 +330,30 @@ def phase_kernels(dev) -> list[dict]:
             4 * (B * P + B * P * P + B * S * P + B * S), 2 * B * S * P * P + 2 * B * S * P,
         )
 
-    # the per-ingest signature call, and the whole corpus at once
-    for N, H, D in [(64, 128, 512), (1842, 128, 512)]:
-        present = rng.random((N, D)) < 9 / D  # the path's density: ~9 of 512
-        present[[1, N // 2, N - 1]] = False  # rows with no shingle give EMPTY
+    # the per-ingest signature call, the whole corpus at once, one row, the
+    # schedule's largest batch, a ragged table (H = 8, D = 40) and a D that is
+    # not a multiple of 4 (4-byte loads of X); each through the entry the
+    # path takes (the transposed table) and through the (H, D) table
+    for N, H, D in [(64, 128, 512), (1842, 128, 512), (1, 128, 512), (67, 128, 512),
+                    (5, 8, 40), (9, 33, 70)]:
+        if not wanted("minhash"):
+            break
+        present = rng.random((N, D)) < (9 / 512 if D == 512 else 0.2)  # the path's density
+        if N >= 4:
+            present[[1, N // 2, N - 1]] = False  # rows with no shingle give EMPTY
         X = put(present.astype(np.float32))
         A = put(mh.hash_table(H, D, seed=N))
-        check(
-            "minhash", f"N={N},H={H},D={D}",
-            lambda: mh.minhash(X, A), lambda: mh.minhash_plain(X, A),
-            None,  # no single PyTorch call computes the masked min
-            None,  # exact
-            # ops: one int32 min for each present shingle of each row and hash
-            4 * (N * D + H * D + N * H), H * int(present.sum()), PEAK_INT32_OPS,
-        )
+        At = A.T.contiguous()
+        for label, kernel in [("", lambda: mh.minhash_transposed(X, At)),
+                              (",A (H,D)", lambda: mh.minhash(X, A))]:
+            check(
+                "minhash", f"N={N},H={H},D={D}{label}",
+                kernel, lambda: mh.minhash_plain(X, A),
+                None,  # no single PyTorch call computes the masked min
+                None,  # exact
+                # ops: one int32 min for each present shingle of each row and hash
+                4 * (N * D + H * D + N * H), H * int(present.sum()), PEAK_INT32_OPS,
+            )
 
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
@@ -347,6 +370,8 @@ def phase_kernels(dev) -> list[dict]:
         (2, 100, 100, 4, 2, 16, torch.float32, True),
         (2, 40, 100, 4, 2, 8, torch.float32, True),
     ]:
+        if not wanted("flash_attn"):
+            break
         q, k, v = (
             put(rng.standard_normal((B, n, h, hd)).astype(np.float32)).to(dtype)
             for n, h in [(S, H), (T, hkv), (T, hkv)]
@@ -775,6 +800,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="print each kernel's registers, spills and shared memory as it builds")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernels); prints no result line")
+    ap.add_argument("--only", type=lambda v: v.split(","), metavar="KERNEL[,KERNEL]",
+                    help="with --kernels-only: phase 2 for these kernels alone")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -792,7 +819,9 @@ def main(argv: list[str] | None = None) -> int:
     dev = resolve_device("cuda:0")
     t0 = time.perf_counter()
     phase_build(args.ptxas_verbose)
-    rows = phase_kernels(dev)
+    if args.only and not args.kernels_only:
+        ap.error("--only needs --kernels-only")
+    rows = phase_kernels(dev, args.only)
     if args.kernels_only:
         return 0
     launches, resolved = phase_pipeline(dev)

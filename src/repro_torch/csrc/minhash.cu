@@ -1,33 +1,35 @@
-// MinHash signatures: out[n, h] = min { A[h, d] : X[n, d] > 0 } over d,
+// MinHash signatures: out[n, h] = min { A(h, d) : X[n, d] > 0 } over d,
 // EMPTY = 2^30 where row n has no present shingle.  X (N, D) float32
-// presence, A (H, D) int32 hash table, out (N, H) int32.
+// presence, out (N, H) int32.  The int32 hash table is read as
+// A(h, d) = A[h * stride_h + d * stride_d]: the (H, D) table itself
+// (stride_h = D, stride_d = 1), or its (D, H) transposed copy
+// (stride_h = 1, stride_d = H), in which a shingle d is one row.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/minhash/kernel.py
 // (minhash).  The Pallas version fed X and A transposed, (D, N) and
-// (D, H), so that N and H sat on the TPU's 128 lanes; that layout has no
-// purpose here and is not carried over.
+// (D, H), so that N and H sat on the TPU's 128 lanes, and took the
+// masked min densely over every d.
 //
 // Bound on the H100: the streaming ingest calls it with N = 59-68 rows
-// against H = 128 hash functions over D = 512 shingle slots.  It reads
-// 4 (N D + H D) bytes and writes 4 N H: 426 KB at N = 64, 0.13 us at
-// 3.35 TB/s.  Done densely, the masked min is N H D = 4.2 M int32 min
-// operations (a compare and a select each, no tensor cores apply to a
-// min-plus product), about 0.25 us at 132 SMs x 64 INT32 lanes x
-// 1.98 GHz, so this dense kernel is bound by operations.  The work the
-// data needs is smaller: a row holds about 9 of its 512 shingles, so
-// the min runs over N H 9 values and bytes bound it.
+// against H = 128 hash functions over D = 512 shingle slots (and with
+// N = 1,842 when the whole corpus is one batch).  It reads 4 (N D + H D)
+// bytes and writes 4 N H: 426 KB at N = 64, 0.13 us at 3.35 TB/s.  A row
+// holds about 9 of its 512 shingles, so the min the data needs is N H 9
+// int32 operations, well below that.  Both bounds are far below the time
+// of a launch: what bounds the kernel is latency, the number of dependent
+// trips to memory a row takes, and a dense min over every d would spend
+// about 98% of its compares on absent shingles.
 //
-// Design: one block of 32 x 8 threads per 32 x 32 output tile.  X's 32
-// rows and A's 32 rows are staged in shared memory one 32-wide slice of
-// d at a time (coalesced loads, a padded A tile so that the 32 lanes of
-// a warp read 32 banks); X is kept as a 0/1 flag.  A warp shares one
-// row n, so its branch on the flag never diverges, and each thread keeps
-// the running min of its 4 outputs (n, h) in registers over all of d.
+// Design: compact, then gather.  One warp a row, one row a block (64
+// blocks at N = 64).  The warp issues every load of a 512-wide slice of
+// its row of X at once (16 bytes a lane when D % 4 == 0 and X is 16-byte
+// aligned, else 4), turns the lanes' X > 0 tests into a list of the
+// present d in shared memory with __ballot_sync and __popc, and then
+// takes each lane's mins, for hashes h = lane + 32 j, over the listed d
+// only, with the loads of 8 listed d in flight at once.  From the
+// transposed copy each of those warp loads reads 128 contiguous bytes;
+// from the (H, D) table each lane's load lands in a sector of its own.
 // The result is exact: an integer min in any order is the same min.
-//
-// Later design, not this one: compact each row's present indices once
-// (about 9 of 512), then take the min over those columns of A only,
-// about 50x less work at the path's density.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,63 +37,109 @@
 namespace {
 
 constexpr int32_t EMPTY = 1 << 30;
-constexpr int TILE = 32;   // outputs a block covers along n and along h
-constexpr int ROWS = 8;    // threads along n; each keeps TILE / ROWS rows
-constexpr int BD = 32;     // slice of d staged per step
+constexpr int CHUNK = 512;  // d listed at once
+constexpr int HW = 4;       // hashes a lane holds: h0 + lane + 32 j, j < HW
+constexpr int BATCH = 8;    // listed d whose loads are in flight together
 
-__global__ void __launch_bounds__(TILE * ROWS)
-    minhash_kernel(const float* __restrict__ X, const int32_t* __restrict__ A,
-                   int32_t* __restrict__ out, int N, int H, int D) {
-  __shared__ uint8_t xs[TILE][BD];
-  __shared__ int32_t as[TILE][BD + 1];
-
-  const int tx = threadIdx.x;  // h within the tile, and d when loading
-  const int ty = threadIdx.y;  // n within the tile (strided by ROWS)
-  const int n0 = blockIdx.y * TILE;
-  const int h0 = blockIdx.x * TILE;
-
-  int32_t acc[TILE / ROWS];
+// List the present d of x[d0 .. d0 + CHUNK - 1] (d < D) in list; returns
+// how many.  Every lane of the warp takes part and gets the count.
+template <bool VEC>
+__device__ __forceinline__ int compact(const float* __restrict__ x, int D, int d0,
+                                       int* list, int lane) {
+  const unsigned below = (1u << lane) - 1;
+  int count = 0;
+  auto add = [&](float v, int d) {
+    const bool present = v > 0.f;
+    const unsigned bits = __ballot_sync(0xffffffffu, present);
+    if (present) list[count + __popc(bits & below)] = d;
+    count += __popc(bits);
+  };
+  if (VEC) {
+    constexpr int STEPS = CHUNK / 128;
+    float4 v[STEPS];
 #pragma unroll
-  for (int i = 0; i < TILE / ROWS; ++i) acc[i] = EMPTY;
-
-  for (int d0 = 0; d0 < D; d0 += BD) {
-    const int d = d0 + tx;
-#pragma unroll
-    for (int i = 0; i < TILE / ROWS; ++i) {
-      const int r = ty + i * ROWS;
-      const int n = n0 + r;
-      const int h = h0 + r;
-      xs[r][tx] = (n < N && d < D) ? (X[(size_t)n * D + d] > 0.f) : 0;
-      as[r][tx] = (h < H && d < D) ? A[(size_t)h * D + d] : EMPTY;
+    for (int s = 0; s < STEPS; ++s) {
+      const int d = d0 + 128 * s + 4 * lane;
+      v[s] = d < D ? __ldg(reinterpret_cast<const float4*>(x + d)) : make_float4(0, 0, 0, 0);
     }
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < TILE / ROWS; ++i) {
-      const int r = ty + i * ROWS;
-#pragma unroll 8
-      for (int k = 0; k < BD; ++k) {
-        if (xs[r][k]) acc[i] = min(acc[i], as[tx][k]);
+    for (int s = 0; s < STEPS; ++s) {
+      const int d = d0 + 128 * s + 4 * lane;
+      add(v[s].x, d);
+      add(v[s].y, d + 1);
+      add(v[s].z, d + 2);
+      add(v[s].w, d + 3);
+    }
+  } else {
+    constexpr int STEPS = CHUNK / 32;
+    float v[STEPS];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      const int d = d0 + 32 * s + lane;
+      v[s] = d < D ? __ldg(x + d) : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) add(v[s], d0 + 32 * s + lane);
+  }
+  return count;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(32)
+    minhash_kernel(const float* __restrict__ X, const int32_t* __restrict__ A,
+                   int32_t* __restrict__ out, int H, int D, int stride_h, int stride_d) {
+  __shared__ int list[CHUNK];
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
+  const float* x = X + (size_t)n * D;
+
+  for (int h0 = 0; h0 < H; h0 += 32 * HW) {
+    int32_t acc[HW];
+#pragma unroll
+    for (int j = 0; j < HW; ++j) acc[j] = EMPTY;
+    for (int d0 = 0; d0 < D; d0 += CHUNK) {
+      __syncwarp();  // every lane is done with the last list
+      const int count = compact<VEC>(x, D, d0, list, lane);
+      __syncwarp();  // the list is written
+      for (int k0 = 0; k0 < count; k0 += BATCH) {
+        int32_t v[BATCH][HW];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int k = k0 + u;
+          const int d = k < count ? list[k] : 0;
+#pragma unroll
+          for (int j = 0; j < HW; ++j) {
+            const int h = h0 + lane + 32 * j;
+            v[u][j] = k < count && h < H
+                          ? __ldg(A + (size_t)h * stride_h + (size_t)d * stride_d)
+                          : EMPTY;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+#pragma unroll
+          for (int j = 0; j < HW; ++j) acc[j] = min(acc[j], v[u][j]);
+        }
       }
     }
-    __syncthreads();
-  }
-
-  const int h = h0 + tx;
 #pragma unroll
-  for (int i = 0; i < TILE / ROWS; ++i) {
-    const int n = n0 + ty + i * ROWS;
-    if (n < N && h < H) out[(size_t)n * H + h] = acc[i];
+    for (int j = 0; j < HW; ++j) {
+      const int h = h0 + lane + 32 * j;
+      if (h < H) out[(size_t)n * H + h] = acc[j];
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int repro_minhash(const float* X, const int32_t* A, int32_t* out,
-                             int N, int H, int D, void* stream) {
+extern "C" int repro_minhash(const float* X, const int32_t* A, int32_t* out, int N,
+                             int H, int D, int stride_h, int stride_d, void* stream) {
   if (N == 0 || H == 0) return 0;
-  const dim3 grid((H + TILE - 1) / TILE, (N + TILE - 1) / TILE, 1);
-  const dim3 block(TILE, ROWS, 1);
-  minhash_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, A, out, N, H, D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && (uintptr_t)X % 16 == 0) {
+    minhash_kernel<true><<<N, 32, 0, st>>>(X, A, out, H, D, stride_h, stride_d);
+  } else {
+    minhash_kernel<false><<<N, 32, 0, st>>>(X, A, out, H, D, stride_h, stride_d);
+  }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,7 @@ SIGNATURES = {
     "repro_icm_sweep": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_ngram_sim": [_P, _P, _P, _I, _I, _I, _F, _P],
     "repro_mln_score": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_minhash": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_minhash": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "repro_flash_attn_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }

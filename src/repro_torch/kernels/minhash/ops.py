@@ -3,6 +3,9 @@
     ``minhash(X, A)``: X (N, D) f32 presence (nonzero = shingle present),
     A (H, D) int32 hash table -> (N, H) int32 signatures; a row with no
     present shingle gets the ``EMPTY`` sentinel.
+    ``minhash_transposed(X, At)``: the same from the table stored
+    transposed, At (D, H) = A.T contiguous, where a present shingle is one
+    row (the streaming index keeps its table so).
     ``hash_table(H, D, seed)``: (H, D) int32 numpy table in ``[0, EMPTY)``,
     the reference's numpy draw byte for byte.
 
@@ -39,18 +42,13 @@ def minhash_plain(X, A):
     return torch.cat(chunks).to(torch.int32)
 
 
-def minhash(X, A):
-    """X (N, D) f32 presence, A (H, D) int32 -> (N, H) int32 signatures."""
-    if X.device.type == "cpu":
-        return minhash_plain(X, A)
-    (N, D), H = X.shape, A.shape[0]
-    check_operand("X", X, (N, D), X.device)
-    check_operand("A", A, (H, D), X.device, dtype=torch.int32)
+def _launch(X, A, H: int, stride_h: int, stride_d: int):
+    N, D = X.shape
     out = torch.empty((N, H), dtype=torch.int32, device=X.device)
     if N == 0:
         return out
     rc = build.library().repro_minhash(
-        X.data_ptr(), A.data_ptr(), out.data_ptr(), N, H, D,
+        X.data_ptr(), A.data_ptr(), out.data_ptr(), N, H, D, stride_h, stride_d,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     build.check("minhash", rc)
@@ -58,7 +56,27 @@ def minhash(X, A):
     return out
 
 
-minhash.launches = 0
+def minhash(X, A):
+    """X (N, D) f32 presence, A (H, D) int32 -> (N, H) int32 signatures."""
+    if X.device.type == "cpu":
+        return minhash_plain(X, A)
+    (N, D), H = X.shape, A.shape[0]
+    check_operand("X", X, (N, D), X.device)
+    check_operand("A", A, (H, D), X.device, dtype=torch.int32)
+    return _launch(X, A, H, D, 1)
+
+
+def minhash_transposed(X, At):
+    """``minhash(X, At.T)`` from the transposed table At (D, H) int32."""
+    if X.device.type == "cpu":
+        return minhash_plain(X, At.T)
+    (N, D), H = X.shape, At.shape[1]
+    check_operand("X", X, (N, D), X.device)
+    check_operand("At", At, (D, H), X.device, dtype=torch.int32)
+    return _launch(X, At, H, 1, H)
+
+
+minhash.launches = 0  # both entries launch the one kernel
 
 
 def hash_table(num_hashes: int, dim: int, seed: int = 0) -> np.ndarray:

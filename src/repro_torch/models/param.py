@@ -23,6 +23,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
@@ -92,8 +94,9 @@ def _materialize(ps: PSpec, gen: torch.Generator, device) -> torch.Tensor:
     return w.mul_(scale).to(ps.dtype)
 
 
-def init_params(tree, seed: int = 0, device="cpu"):
-    """Materialize a PSpec tree into tensors on ``device``.
+def init_params(tree, seed: int = 0, device=None):
+    """Materialize a PSpec tree into tensors on ``device`` (``None``: CUDA,
+    which raises without a GPU; pass ``device="cpu"`` for the CPU).
 
     Leaf ``i`` (in sorted-key order) draws from its own generator on the
     device, seeded from ``(seed, i)``, under the reference's init laws:
@@ -101,7 +104,7 @@ def init_params(tree, seed: int = 0, device="cpu"):
     The draws are not JAX's: tests that need the reference's weights
     carry them across (``interop.lm_params_from_numpy``).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     index = iter(range(len(leaves(tree))))
 
     def walk(t):

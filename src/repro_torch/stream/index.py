@@ -96,7 +96,8 @@ class MinHashLSHIndex:
         self.table = minhash_ops.hash_table(
             self.cfg.num_hashes, self.cfg.shingle_dim, seed=self.cfg.seed
         )
-        self._table_dev = torch.as_tensor(self.table, device=self.device)
+        # stored transposed, (D, H): a present shingle is one contiguous row
+        self._table_t = torch.as_tensor(np.ascontiguousarray(self.table.T), device=self.device)
         # band index -> band key (tuple of signature rows) -> entity ids
         self.buckets: list[dict[tuple, list[int]]] = [
             {} for _ in range(self.cfg.num_bands)
@@ -115,7 +116,7 @@ class MinHashLSHIndex:
         x = torch.as_tensor(
             shingle_presence(names, self.cfg.shingle_dim), device=self.device
         )
-        return minhash_ops.minhash(x, self._table_dev).cpu().numpy()
+        return minhash_ops.minhash_transposed(x, self._table_t).cpu().numpy()
 
     def _band_keys(self, sig: np.ndarray):
         r = self.cfg.rows_per_band

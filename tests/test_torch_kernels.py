@@ -81,7 +81,12 @@ def test_icm_sweep_batched_bsp(B, S, P):
     assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("M,N,F", [(1, 70, 96), (1, 130, 128), (8, 8, 32), (100, 70, 96)])
+@pytest.mark.parametrize("M,N,F", [
+    (1, 70, 96), (1, 130, 128), (8, 8, 32), (100, 70, 96),
+    # chip_smoke.py's phase-2 shapes: the canopy's second chunk, the stream
+    # probe's two ends, a ragged F, and an F that is not a multiple of 4
+    (1, 818, 128), (64, 65, 128), (68, 1697, 128), (3, 70, 100), (5, 37, 30),
+])
 @pytest.mark.parametrize("threshold", [0.0, -2.0, 0.7])
 def test_ngram_sim(M, N, F, threshold):
     rng = np.random.default_rng(M + N + F)

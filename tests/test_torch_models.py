@@ -127,9 +127,9 @@ def test_init_params_laws_and_determinism():
         "o": param.PSpec((5,), init="ones"),
         "stk": param.stack(3, {"a": param.PSpec((64, 32))}),
     }
-    a = param.init_params(specs, seed=3)
-    b = param.init_params(specs, seed=3)
-    c = param.init_params(specs, seed=4)
+    a = param.init_params(specs, seed=3, device="cpu")
+    b = param.init_params(specs, seed=3, device="cpu")
+    c = param.init_params(specs, seed=4, device="cpu")
     for (ka, va), (kb, vb) in zip(_flat(a).items(), _flat(b).items()):
         assert ka == kb and torch.equal(va, vb)
     assert not torch.equal(a["w"], c["w"])
@@ -138,8 +138,20 @@ def test_init_params_laws_and_determinism():
     assert abs(a["emb"].std().item() - 0.02) < 0.002
     assert torch.equal(a["z"], torch.zeros(7)) and torch.equal(a["o"], torch.ones(5))
     # every leaf has its own generator: equal shapes do not give equal draws
-    two = param.init_params({"x": param.PSpec((64, 64)), "y": param.PSpec((64, 64))}, seed=0)
+    two = param.init_params({"x": param.PSpec((64, 64)), "y": param.PSpec((64, 64))}, seed=0,
+                            device="cpu")
     assert not torch.equal(two["x"], two["y"])
+
+
+def test_init_params_default_device_needs_a_gpu(monkeypatch):
+    """device=None means CUDA, as at every other entry point: without a GPU it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    specs = {"w": param.PSpec((4, 8))}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        param.init_params(specs, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        param.init_params(specs, seed=0, device=None)
+    assert param.init_params(specs, seed=0, device="cpu")["w"].device.type == "cpu"
 
 
 def test_state_dict_keys_name_reference_leaves(dense_models):

@@ -83,13 +83,31 @@ def test_minhash_plain_equals_reference(N, H, D):
     assert (want[0] == mh.EMPTY).all() and (want[-1] == mh.EMPTY).all()
 
 
-@pytest.mark.parametrize("N,H,D", [(1, 128, 512), (67, 128, 512), (5, 8, 40)])
+# chip_smoke.py's phase-2 shapes: one row, the schedule's largest batch,
+# the per-ingest call, a ragged table, and a D that is not a multiple of 4
+MINHASH_SHAPES = [(1, 128, 512), (67, 128, 512), (5, 8, 40), (64, 128, 512), (9, 33, 70)]
+
+
+@pytest.mark.parametrize("N,H,D", MINHASH_SHAPES)
 def test_minhash_plain_equals_pallas_interpret(N, H, D):
     rng = np.random.default_rng(N * 7 + D)
     X = _presence(rng, N, D, density=9 / 512 if D == 512 else 0.2)
     A = ref_mh_ops.hash_table(H, D, seed=N + 1)
     want = np.asarray(ref_kernel.minhash(X, A, interpret=True))
     got = mh.minhash(torch.as_tensor(X), torch.as_tensor(A))  # CPU: the plain version
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("N,H,D", MINHASH_SHAPES)
+def test_minhash_transposed_equals_pallas_interpret(N, H, D):
+    """The entry the streaming index takes, fed the table stored (D, H)."""
+    rng = np.random.default_rng(N * 11 + D)
+    X = _presence(rng, N, D, density=9 / 512 if D == 512 else 0.2)
+    A = ref_mh_ops.hash_table(H, D, seed=N + 2)
+    want = np.asarray(ref_kernel.minhash(X, A, interpret=True))
+    At = torch.as_tensor(np.ascontiguousarray(A.T))
+    got = mh.minhash_transposed(torch.as_tensor(X), At)  # CPU: the plain version
+    assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
 
