@@ -14,15 +14,22 @@
    then the MMP fixpoint scored with ``MLNMatcher.score``.  The kernels'
    launch counters are set to 0 just before and read just after.  The
    match gids must equal the port's own CPU run, and the evals, messages,
-   matches and P/R/F1 the reference table below.
-4. Stream: the same corpus through ``repro_torch.stream.ResolveService``
+   matches and P/R/F1 the reference table below.  Then (not counted)
+   ``mln_score`` is timed on the k=32 bin's grounding and the fixpoint's
+   mask, beside its bound on the rows of C that mask needs.
+4. Rules (``rules``): ``resolve`` with ``RulesMatcher`` on CUDA, nomp and
+   smp, on phase 3's cover and grounding, the counters set to 0 before
+   each run and read after it; evals, matches, P/R/F1 and the gid digest
+   must equal ``EXPECTED_RULES``, ``icm_sweep`` must launch, and MMP must
+   refuse the matcher (it has no ``score``).
+5. Stream: the same corpus through ``repro_torch.stream.ResolveService``
    on CUDA, as 29 paper-aligned batches (smp and mmp) and as one batch
    (smp).  The launch counters are set to 0 before each run and read
    after it.  Matches, evals, clusters, the O(dirty) counters and the
    digests must equal the reference table ``EXPECTED_STREAM``; the
    one-batch gids must equal phase 3's smp gids.  Prints each run's wall
    time, ingest p50/p99 and the time of each ingest stage (tracing spans).
-5. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+6. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
    layers, weights drawn on the CPU with ``init_params``, a prefill of 4
    prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
    CPU's tokens; the largest logit difference over the largest logit must
@@ -37,9 +44,9 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-6. Profile: the first 100 MMP evaluations once more under
+7. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-7. The card's name and power limit, the kernel list as one JSON line, and
+8. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -104,6 +112,15 @@ EXPECTED_STREAM = {
         match_digest="7033f22c37fcd616d9e0d95a76d412fe98c86f87079461cf366d9e2fffe607d2",
     ),
 }
+# ``resolve(..., matcher=RulesMatcher())`` on the same corpus with the
+# reference package: scheme -> (evals, messages emitted, promoted, matches,
+# P, R, F1); both schemes give the same match gids, of this digest
+# (``gid_digest``)
+EXPECTED_RULES = {
+    "nomp": (406, 0, 0, 2849, 0.826, 0.8014, 0.8135),
+    "smp": (452, 0, 0, 2849, 0.826, 0.8014, 0.8135),
+}
+RULES_GID_DIGEST = "bb434f828312311d328f8db0c03f8a2b77a0def58df08cec840caeacc8dbfa95"
 STREAM_SPANS = ("ingest.lsh", "ingest.replay", "ingest.cover_splice",
                 "ingest.grounding_splice", "ingest.rounds", "ingest.commit")
 
@@ -236,6 +253,22 @@ def _symmetric_coupling(rng, B, P, w_co=2.46, density=0.02):
     return (w_co * link).astype(np.float32)
 
 
+def _score_work(X: np.ndarray) -> dict:
+    """(bytes, flops) of ``score_sets`` on X (B, S, P), two ways.  "present":
+    reading only the rows of C at X's present entries (u and X read and out
+    written once, each row C[b, q] that some s of b needs read once, 2 flops
+    a value of a row for each present entry; at S = 1 the bytes are
+    4 (B P + B S P + B S + P nnz(X))).  "dense": reading all of C."""
+    B, S, P = X.shape
+    present = X != 0
+    rows = int(np.count_nonzero(present.any(axis=1)))
+    nnz = int(np.count_nonzero(present))
+    return dict(
+        present=(4 * (B * P + B * S * P + B * S + P * rows), 2 * P * nnz + 2 * B * S * P),
+        dense=(4 * (B * P + B * P * P + B * S * P + B * S), 2 * B * S * P * P + 2 * B * S * P),
+    )
+
+
 def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     """Each kernel (or each named in ``only``) vs its plain version on the
     card at the main path's shapes."""
@@ -257,7 +290,9 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         return torch.as_tensor(a, device=dev)
 
     def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS,
-              iters=50):
+              iters=50, dense=None):
+        """``dense``: (bytes, ops) of a kernel that reads every input whole,
+        where ``n_bytes`` and ``ops`` count only what this input's data needs."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if tol is None:  # exact: integer outputs
@@ -272,11 +307,14 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
             library_ms=None if library is None else time_ms(library, iters)[0],
         )
         row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, peak)
+        if dense is not None:
+            row["dense_bound_ms"] = bound(*dense, peak)[0]
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(
             f"[kernels] {name:9s} {shape:22s} ok  max_abs_err={row['max_abs_err']:.3g}"
             f"  kernel_ms={ms:.4f} (eager call {call_ms:.4f})  plain_ms={row['plain_ms']:.4f}"
             f"  library_ms={lib}  bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
+            + (f"  dense_bound_ms={row['dense_bound_ms']:.5f}" if dense is not None else "")
         )
         rows.append(row)
 
@@ -316,18 +354,39 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
             4 * (M * F + N * F + M * N), 2 * M * N * F,
         )
 
-    for B, S, P in [(192, 1, 496)]:
+    # the k=32 bin at X density 0.3, then at the path's own sparsity (50
+    # valid pairs a neighborhood, 35 present on average, C zero outside the
+    # valid pairs as the grounding masks it), an all-zero X, an X that is
+    # not 0/1, S = 16 at the k=16 bin's P, and a P that is not a multiple of
+    # 4 (the 4-byte loads)
+    for B, S, P, x_kind in [(192, 1, 496, "x 0.3"), (192, 1, 496, "path"),
+                            (192, 1, 496, "x 0"), (192, 1, 496, "x real"),
+                            (90, 16, 120, "x 0.3"), (64, 2, 378, "x 0.3")]:
         if not wanted("mln_score"):
             break
-        u = put(rng.standard_normal((B, P)).astype(np.float32))
-        C = put(_symmetric_coupling(rng, B, P))
-        X = put((rng.random((B, S, P)) < 0.3).astype(np.float32))
+        u = rng.standard_normal((B, P)).astype(np.float32)
+        C = _symmetric_coupling(rng, B, P)
+        present = rng.random((B, S, P)) < 0.3
+        if x_kind == "path":
+            valid = np.zeros((B, P), dtype=bool)
+            for b in range(B):
+                valid[b, rng.choice(P, 50, replace=False)] = True
+            u = np.where(valid, u, np.float32(0))
+            C = C * (valid[:, :, None] & valid[:, None, :])
+            present = valid[:, None, :] & (rng.random((B, S, P)) < 0.7)
+        X = present.astype(np.float32)
+        if x_kind == "x 0":
+            X[:] = 0
+        elif x_kind == "x real":
+            X *= rng.standard_normal((B, S, P)).astype(np.float32)
+        work = _score_work(X)  # the rows of C this X needs
+        u, C, X = put(u), put(C), put(X)
         check(
-            "mln_score", f"B={B},S={S},P={P}",
+            "mln_score", f"B={B},S={S},P={P},{x_kind}",
             lambda: score.score_sets(u, C, X), lambda: score.score_sets_plain(u, C, X),
             None,  # no single PyTorch call computes x.u + x C x^T / 2
             dict(rtol=2e-5, atol=2e-4),
-            4 * (B * P + B * P * P + B * S * P + B * S), 2 * B * S * P * P + 2 * B * S * P,
+            *work["present"], dense=work["dense"],
         )
 
     # the per-ingest signature call, the whole corpus at once, one row, the
@@ -441,6 +500,9 @@ def phase_pipeline(dev):
     log(f"[pipeline] launches on the main path: {launches}")
     for name in ("icm_sweep", "ngram_sim", "mln_score"):
         require(launches[name] > 0, f"{name} was never launched on the main path")
+    require(launches["mln_score"] == len(fixpoint.packed.bins),
+            f"mln_score launched {launches['mln_score']} times, once a bin expected")
+    time_fixpoint_score(dev, matcher, fixpoint)
 
     packed = fixpoint.packed
     log(
@@ -486,6 +548,30 @@ def phase_pipeline(dev):
             f"P {prf.precision:.4f} R {prf.recall:.4f} F1 {prf.f1:.4f}"
         )
     return launches, gpu
+
+
+def time_fixpoint_score(dev, matcher, fixpoint, k: int = 32) -> None:
+    """``score_sets`` on the path's own input: the k=32 bin's grounding and
+    the MMP fixpoint's mask, timed (after the counted run) beside its bounds."""
+    import torch
+
+    from repro_torch.kernels.mln_score import ops as score
+
+    nb = fixpoint.packed.bins[k]
+    g = matcher.ground(nb)
+    mask = np.asarray(fixpoint.result.matches.mask_of(nb.pair_gid), dtype=bool)
+    X = torch.as_tensor(mask, device=dev).float()[:, None, :]
+    kernel = lambda: score.score_sets(g.u_raw, g.C, X)  # noqa: E731
+    plain = lambda: score.score_sets_plain(g.u_raw, g.C, X)  # noqa: E731
+    np.testing.assert_allclose(kernel().cpu().numpy(), plain().cpu().numpy(),
+                               rtol=2e-5, atol=2e-4)
+    ms, call_ms = time_ms(kernel)
+    work = _score_work(mask[:, None, :])
+    log(f"[pipeline] mln_score on the MMP fixpoint's k={k} bin (B,S,P = {tuple(X.shape)}, "
+        f"{mask.sum()} present pairs, {mask.sum(1).mean():.1f} a row, at most "
+        f"{mask.sum(1).max()}): kernel_ms={ms:.4f} (eager call {call_ms:.4f})  "
+        f"plain_ms={time_ms(plain)[0]:.4f}  bound_ms={bound(*work['present'])[0]:.5f} "
+        f"(present rows)  dense_bound_ms={bound(*work['dense'])[0]:.5f}")
 
 
 def stream_run(dev, scheme: str, batches) -> dict:
@@ -561,6 +647,55 @@ def phase_stream(dev, resolved) -> dict:
             + f"; matches {run['matches']}, evals {run['evals']}, clusters {run['clusters']}, "
             f"launches {lc}"
         )
+    return total
+
+
+def gid_digest(gids) -> str:
+    """sha256 of the sorted match gids as int64."""
+    return hashlib.sha256(np.sort(np.asarray(gids)).astype(np.int64).tobytes()).hexdigest()
+
+
+def phase_rules(dev, resolved) -> dict:
+    """``resolve`` with the RULES matcher on ``dev`` (nomp, smp) against
+    ``EXPECTED_RULES``, on phase 3's cover and grounding; MMP must refuse
+    it.  Returns the launch counts summed over its runs."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.rules import RulesMatcher
+    from repro_torch.data.synthetic import SynthConfig, make_dataset
+
+    ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
+    packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
+    total = dict.fromkeys(KERNELS, 0)
+    for scheme, want in EXPECTED_RULES.items():
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = pipeline.resolve(ds.entities, ds.relations, scheme=scheme, packed=packed, gg=gg,
+                               matcher=RulesMatcher(device=dev), device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        lc = _read_counts()
+        require(lc["icm_sweep"] > 0, f"rules {scheme}: icm_sweep was never launched")
+        r = res.result
+        prf = pipeline.evaluate(res, ds.entities.truth)
+        got = (r.neighborhood_evals, r.messages_emitted, r.messages_promoted, len(r.matches),
+               round(prf.precision, 4), round(prf.recall, 4), round(prf.f1, 4))
+        require(got == want, f"rules {scheme}: got {got}, expected {want}")
+        digest = gid_digest(r.matches.gids)
+        require(digest == RULES_GID_DIGEST,
+                f"rules {scheme}: gid digest {digest}, expected {RULES_GID_DIGEST}")
+        for name, n in lc.items():
+            total[name] += n
+        log(f"[rules] {scheme}: wall {wall:.2f} s (matching {r.wall_time_s:.2f} s), evals "
+            f"{r.neighborhood_evals}, matches {len(r.matches)}, P {prf.precision:.4f} "
+            f"R {prf.recall:.4f} F1 {prf.f1:.4f}, gid digest {digest[:16]}..., "
+            f"icm_sweep launches {lc['icm_sweep']}")
+    try:
+        pipeline.resolve(ds.entities, ds.relations, scheme="mmp", packed=packed, gg=gg,
+                         matcher=RulesMatcher(device=dev), device=dev)
+    except AssertionError as e:
+        log(f"[rules] mmp refuses RulesMatcher: {e}")
+    else:
+        raise RuntimeError("resolve(scheme='mmp') accepted RulesMatcher, which has no score()")
     return total
 
 
@@ -825,6 +960,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.kernels_only:
         return 0
     launches, resolved = phase_pipeline(dev)
+    rules_launches = phase_rules(dev, resolved)
     stream_launches = phase_stream(dev, resolved)
     lm_launches = phase_lm(dev)
     phase_profile(dev, resolved["mmp"])
@@ -844,13 +980,16 @@ def main(argv: list[str] | None = None) -> int:
             name=name, route="cuda", source=meta["source"],
             **({"sources": meta["sources"]} if "sources" in meta else {}),
             replaces=meta["replaces"],
-            launches=launches[name] + stream_launches[name] + lm_launches[name],
-            launches_by_path={"pipeline": launches[name], "stream": stream_launches[name],
-                              "lm": lm_launches[name]},
+            launches=(launches[name] + rules_launches[name] + stream_launches[name]
+                      + lm_launches[name]),
+            launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
+                              "stream": stream_launches[name], "lm": lm_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
+            **({"dense_bound_ms": main_shape["dense_bound_ms"]}
+               if "dense_bound_ms" in main_shape else {}),
             library_ms=main_shape["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,13 @@ The Type-II score of the MLN matcher, per (neighborhood, candidate set):
 Kernel: ``csrc/mln_score.cu`` (replaces the Pallas kernel
 ``src/repro/kernels/mln_score/kernel.py``); the source says what bounds
 it on the H100.  CPU tensors go to :func:`score_sets_plain`.
+
+The kernel reads only the rows ``C[b, q, :]`` whose ``x_q`` is nonzero
+(``0.0`` and ``-0.0`` are skipped).  That is exact whenever ``C`` is
+finite, since a skipped row adds exactly ``0 * (C[q] . x) = 0``; the
+grounding's ``C = w_co * link`` always is.  Where a skipped row of ``C``
+holds an inf or a NaN the plain version gives NaN (``0 * inf``) and the
+kernel does not.  X may hold any float32 values, not only 0/1.
 """
 
 from __future__ import annotations

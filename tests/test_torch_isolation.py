@@ -57,6 +57,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     from repro_torch.core import pipeline
     from repro_torch.core.cover import build_cover
     from repro_torch.core.mln import MLNMatcher
+    from repro_torch.core.rules import RulesMatcher
     from repro_torch.data.synthetic import SynthConfig, make_dataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -67,9 +68,12 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         pipeline.prepare(ds.entities, ds.relations)
     with pytest.raises(RuntimeError):
         MLNMatcher()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RulesMatcher()
     with pytest.raises(RuntimeError):
         build_cover(ds.entities, ds.relations)
     assert MLNMatcher(device="cpu").device.type == "cpu"
+    assert RulesMatcher(device="cpu").device.type == "cpu"
 
     from repro_torch.configs.base import smoke_config
     from repro_torch.launch import serve

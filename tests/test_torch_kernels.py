@@ -110,16 +110,33 @@ def test_ngram_sim_matrix_keeps_every_cosine():
     assert_allclose(sim.sim_matrix(_t(A), _t(B)).numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,S,P", [(1, 1, 8), (2, 4, 16), (3, 5, 96), (2, 1, 130)])
-def test_mln_score_sets(B, S, P):
+@pytest.mark.parametrize("B,S,P,x_kind", [
+    pytest.param(*shape, "binary", id="-".join(map(str, shape)))
+    for shape in [(1, 1, 8), (2, 4, 16), (3, 5, 96), (2, 1, 130)]
+] + [
+    # the cases the CUDA kernel's skip of absent rows must get right: an
+    # all-zero x (the linear term alone, 0), X that is not 0/1 (with zeros
+    # and -0.0 among its values), and the match sets' sparsity (~7%)
+    pytest.param(3, 2, 120, "zero", id="zero-x"),
+    pytest.param(2, 3, 130, "real", id="non-binary"),
+    pytest.param(4, 1, 496, "sparse", id="sparse-7pct"),
+])
+def test_mln_score_sets(B, S, P, x_kind):
     rng = np.random.default_rng(B * 100 + S * 10 + P)
     u = rng.standard_normal((B, P)).astype(np.float32)
     C = _sym_nonneg(rng, B, P, P)
-    X = (rng.random((B, S, P)) < 0.4).astype(np.float32)
+    X = {
+        "binary": lambda: rng.random((B, S, P)) < 0.4,
+        "zero": lambda: np.zeros((B, S, P)),
+        "real": lambda: rng.standard_normal((B, S, P)) * (rng.random((B, S, P)) < 0.3) * -1.0,
+        "sparse": lambda: rng.random((B, S, P)) < 0.07,
+    }[x_kind]().astype(np.float32)
     want = ref_score.score_sets(u, C, X, interpret=True)
     got = score.score_sets(_t(u), _t(C), _t(X))
     assert tuple(got.shape) == (B, S)
     assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+    if x_kind == "zero":
+        assert not got.any()
 
 
 @pytest.mark.parametrize("n", [1, 5, 8, 33, 127, 128, 496])
