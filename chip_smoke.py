@@ -22,14 +22,29 @@
    each run and read after it; evals, matches, P/R/F1 and the gid digest
    must equal ``EXPECTED_RULES``, ``icm_sweep`` must launch, and MMP must
    refuse the matcher (it has no ``score``).
-5. Stream: the same corpus through ``repro_torch.stream.ResolveService``
+5. Parallel (``parallel``): the round-parallel engine
+   ``repro_torch.core.parallel.run_parallel`` on CUDA over phase 3's cover
+   and grounding: the MLN matcher nomp, smp and mmp and RULES nomp and smp,
+   each fused and ``fused=False``, the counters set to 0 before each run and
+   read after it.  Rounds, evals, messages, matches, P/R/F1, dispatches,
+   full rounds, the per-round history, host scans and the gid digest must
+   equal ``EXPECTED_PARALLEL``, the gids phase 3's (or ``RULES_GID_DIGEST``),
+   and ``icm_sweep`` must launch in every run.  Then ``resolve(...,
+   parallel=True)`` for mmp, the streaming service with ``parallel=True``
+   over the 29 batches (smp and mmp, held to ``EXPECTED_STREAM_PARALLEL``,
+   ``minhash`` launched 29 times each), and once more for mmp with
+   ``gcache_capacity=1`` (spill mode: the same match digest, at most one
+   resident bin, evictions and cold re-grounds).  Prints each run's wall,
+   dispatches and launches, and the device's busy share, device ops and
+   device-to-host copies of one more fused mmp run under ``torch.profiler``.
+6. Stream: the same corpus through ``repro_torch.stream.ResolveService``
    on CUDA, as 29 paper-aligned batches (smp and mmp) and as one batch
    (smp).  The launch counters are set to 0 before each run and read
    after it.  Matches, evals, clusters, the O(dirty) counters and the
    digests must equal the reference table ``EXPECTED_STREAM``; the
    one-batch gids must equal phase 3's smp gids.  Prints each run's wall
    time, ingest p50/p99 and the time of each ingest stage (tracing spans).
-6. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+7. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
    layers, weights drawn on the CPU with ``init_params``, a prefill of 4
    prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
    CPU's tokens; the largest logit difference over the largest logit must
@@ -44,9 +59,9 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-7. Profile: the first 100 MMP evaluations once more under
+8. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-8. The card's name and power limit, the kernel list as one JSON line, and
+9. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -121,6 +136,49 @@ EXPECTED_RULES = {
     "smp": (452, 0, 0, 2849, 0.826, 0.8014, 0.8135),
 }
 RULES_GID_DIGEST = "bb434f828312311d328f8db0c03f8a2b77a0def58df08cec840caeacc8dbfa95"
+# ``run_parallel`` on phase 3's cover and grounding with the reference
+# package (algorithm-determined, framework-independent):
+# (matcher, scheme, fused) -> (rounds, evals, emitted, promoted, matches, P,
+# R, F1, dispatches, full_rounds, history, host scans); the MLN runs give the
+# gids of ``PARALLEL_GID_DIGEST`` (those of the sequential drivers), the
+# RULES runs those of ``RULES_GID_DIGEST``
+_NOMP, _SMP, _MMP = (0.8057, 0.8465, 0.8256), (0.8059, 0.8481, 0.8265), (0.8067, 0.8521, 0.8288)
+_RULES = (0.826, 0.8014, 0.8135)
+EXPECTED_PARALLEL = {
+    ("mln", "nomp", True): (1, 406, 0, 0, 2978, *_NOMP, 4, 1, [406], 0),
+    ("mln", "smp", True): (4, 1119, 0, 0, 2984, *_SMP, 9, 2, [403, 376, 10, 330], 0),
+    ("mln", "mmp", True): (3, 1111, 238, 8, 3000, *_MMP, 9, 2, [403, 394, 314], 0),
+    ("mln", "nomp", False): (1, 406, 0, 0, 2978, *_NOMP, 4, 0, [406], 0),
+    ("mln", "smp", False): (3, 792, 0, 0, 2984, *_SMP, 9, 0, [406, 376, 10], 0),
+    ("mln", "mmp", False): (3, 1206, 238, 8, 3000, *_MMP, 12, 0, [406, 394, 406], 3),
+    ("rules", "nomp", True): (1, 406, 0, 0, 2849, *_RULES, 1, 0, [406], 0),
+    ("rules", "smp", True): (2, 774, 0, 0, 2849, *_RULES, 1, 0, [406, 368], 0),
+    ("rules", "nomp", False): (1, 406, 0, 0, 2849, *_RULES, 4, 0, [406], 0),
+    ("rules", "smp", False): (2, 774, 0, 0, 2849, *_RULES, 8, 0, [406, 368], 0),
+}
+PARALLEL_GID_DIGEST = {
+    "nomp": "be8e7532898fb93d9aa68f67c1aa993aadab9abad8374d0a0415cfdc19f8d7aa",
+    "smp": "357d0d33364d11a20b84c03c8131fd3a2cb979dc0013831bfac4c166503fc70b",
+    "mmp": "69c0aaf689754bc8d56ae42c58c93b7c8c79deafb10a983c554919c86e7cf53d",
+}
+# ``ResolveService(ServiceConfig(scheme=..., parallel=True))`` over the 29
+# batches with the reference package: the sequential engine's matches,
+# clusters and match digests; evals count rounds' rows, and mmp's pool (so its
+# state digest) differs from the sequential engine's
+EXPECTED_STREAM_PARALLEL = {
+    "smp": dict(
+        matches=3015, evals=5124, clusters=353, replay_visits=8741,
+        cover_splice_rows=1878, grounding_pair_visits=0, reground_rows=1890,
+        match_digest="22666affdd33605ff048087be7ef1d570813ba18fe0ecb9bf4d4732c10a8df6b",
+        state_digest="97741b7640050f6ceb98f6b8d6720b956c6bdd9278c62ec6869e44c5f18b1222",
+    ),
+    "mmp": dict(
+        matches=3031, evals=5116, clusters=369, replay_visits=8741,
+        cover_splice_rows=1878, grounding_pair_visits=4707, reground_rows=1890,
+        match_digest="455b8da3058044e71ddd381d47687911627ccf1c99389f02a6dc6278e50bedbf",
+        state_digest="766e56e7812489d69309cda1ec2cf50b98df795cd60029bb15ebe840869e1c49",
+    ),
+}
 STREAM_SPANS = ("ingest.lsh", "ingest.replay", "ingest.cover_splice",
                 "ingest.grounding_splice", "ingest.rounds", "ingest.commit")
 
@@ -320,9 +378,11 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
 
     f32 = dict(rtol=1e-5, atol=1e-5)
     # the k=32 bin's closure, entailment and batch sweeps, then the other
-    # bins' P (k=16: 120, k=24: 276) at S = 1 and S = P
+    # bins' P (k=16: 120, k=24: 276) at S = 1 and S = P, and last the
+    # round-parallel engine's full round: the k=32 bin's 192 rows' entailment
     for B, S, P in [(1, 1, 496), (1, 496, 496), (192, 1, 496),
-                    (1, 1, 120), (1, 120, 120), (1, 1, 276), (1, 276, 276)]:
+                    (1, 1, 120), (1, 120, 120), (1, 1, 276), (1, 276, 276),
+                    (192, 496, 496)]:
         if not wanted("icm_sweep"):
             break
         u = put(rng.standard_normal((B, P)).astype(np.float32))
@@ -333,6 +393,7 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
             lambda: icm.sweep_batched(u, C, X), lambda: icm.sweep_batched_plain(u, C, X),
             lambda: torch.baddbmm(u[:, None, :], X, C), f32,
             4 * (B * P + B * P * P + 2 * B * S * P), 2 * B * S * P * P,
+            iters=10 if B * S > 1 << 12 else 50,
         )
 
     # the canopy seed probe, the all-pairs form, and the streaming probe;
@@ -483,12 +544,14 @@ def phase_pipeline(dev):
     truth = ds.entities.truth
 
     _zero_counts()
-    gpu, wall = {}, {}
+    gpu, wall, icm_runs = {}, {}, {}
     for scheme in EXPECTED:
+        before = _read_counts()["icm_sweep"]
         t0 = time.perf_counter()
         gpu[scheme] = pipeline.resolve(ds.entities, ds.relations, scheme=scheme, device=dev)
         torch.cuda.synchronize()
         wall[scheme] = time.perf_counter() - t0
+        icm_runs[scheme] = _read_counts()["icm_sweep"] - before
     fixpoint = gpu["mmp"]
     matcher = MLNMatcher(PAPER_LEARNED, device=dev)
     scores = {
@@ -545,9 +608,10 @@ def phase_pipeline(dev):
             f"[pipeline] {scheme}: wall {wall[scheme]:.2f} s (cover {gpu[scheme].cover_time_s:.2f} s, "
             f"matching {res.wall_time_s:.2f} s), evals {res.neighborhood_evals}, messages "
             f"{res.messages_emitted}/{res.messages_promoted}, matches {len(res.matches)}, "
-            f"P {prf.precision:.4f} R {prf.recall:.4f} F1 {prf.f1:.4f}"
+            f"P {prf.precision:.4f} R {prf.recall:.4f} F1 {prf.f1:.4f}, "
+            f"icm_sweep launches {icm_runs[scheme]}"
         )
-    return launches, gpu
+    return launches, gpu, icm_runs
 
 
 def time_fixpoint_score(dev, matcher, fixpoint, k: int = 32) -> None:
@@ -574,9 +638,10 @@ def time_fixpoint_score(dev, matcher, fixpoint, k: int = 32) -> None:
         f"(present rows)  dense_bound_ms={bound(*work['dense'])[0]:.5f}")
 
 
-def stream_run(dev, scheme: str, batches) -> dict:
-    """One ``ResolveService`` fed ``batches`` on ``dev``: the reference
-    table's quantities, the wall and span times, and the launch counts."""
+def stream_run(dev, scheme: str, batches, **config) -> dict:
+    """One ``ResolveService`` fed ``batches`` on ``dev`` (``config``: more
+    ``ServiceConfig`` fields): the reference table's quantities, the wall
+    and span times, and the launch counts."""
     import torch
 
     from repro_torch import obs
@@ -584,7 +649,8 @@ def stream_run(dev, scheme: str, batches) -> dict:
     from repro_torch.stream import ResolveService, ServiceConfig
     from repro_torch.stream.digest import match_digest, state_digest
 
-    svc = ResolveService(ServiceConfig(scheme=scheme, weights=PAPER_LEARNED), device=dev)
+    svc = ResolveService(ServiceConfig(scheme=scheme, weights=PAPER_LEARNED, **config),
+                         device=dev)
     obs.reset()
     _zero_counts()
     t0 = time.perf_counter()
@@ -604,6 +670,11 @@ def stream_run(dev, scheme: str, batches) -> dict:
         replay_visits=sum(r.replay_visits for r in reports),
         cover_splice_rows=sum(r.cover_splice_rows for r in reports),
         grounding_pair_visits=sum(r.grounding_pair_visits for r in reports),
+        dispatches=svc.engine.total_dispatches,
+        reground_rows=sum(r.reground_rows for r in reports),
+        peak_resident_bins=max(r.peak_resident_bins for r in reports),
+        cache_evictions=sum(r.cache_evictions for r in reports),
+        cold_regrounds=sum(r.cold_regrounds for r in reports),
         match_digest=match_digest(svc.matches), state_digest=state_digest(svc),
     )
 
@@ -658,7 +729,8 @@ def gid_digest(gids) -> str:
 def phase_rules(dev, resolved) -> dict:
     """``resolve`` with the RULES matcher on ``dev`` (nomp, smp) against
     ``EXPECTED_RULES``, on phase 3's cover and grounding; MMP must refuse
-    it.  Returns the launch counts summed over its runs."""
+    it.  Returns the launch counts summed over its runs, and each run's
+    ``icm_sweep`` launches."""
     from repro_torch.core import pipeline
     from repro_torch.core.rules import RulesMatcher
     from repro_torch.data.synthetic import SynthConfig, make_dataset
@@ -666,6 +738,7 @@ def phase_rules(dev, resolved) -> dict:
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
     total = dict.fromkeys(KERNELS, 0)
+    icm_runs = {}
     for scheme, want in EXPECTED_RULES.items():
         _zero_counts()
         t0 = time.perf_counter()
@@ -685,6 +758,7 @@ def phase_rules(dev, resolved) -> dict:
                 f"rules {scheme}: gid digest {digest}, expected {RULES_GID_DIGEST}")
         for name, n in lc.items():
             total[name] += n
+        icm_runs[scheme] = lc["icm_sweep"]
         log(f"[rules] {scheme}: wall {wall:.2f} s (matching {r.wall_time_s:.2f} s), evals "
             f"{r.neighborhood_evals}, matches {len(r.matches)}, P {prf.precision:.4f} "
             f"R {prf.recall:.4f} F1 {prf.f1:.4f}, gid digest {digest[:16]}..., "
@@ -696,6 +770,158 @@ def phase_rules(dev, resolved) -> dict:
         log(f"[rules] mmp refuses RulesMatcher: {e}")
     else:
         raise RuntimeError("resolve(scheme='mmp') accepted RulesMatcher, which has no score()")
+    return total, icm_runs
+
+
+def _profile_run(dev, run) -> dict:
+    """``run()`` under torch.profiler, device activity only: the wall, the
+    device's busy seconds (summed kernel and copy time), the device ops,
+    the device-to-host copies, and the device events themselves."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(wall=wall, busy=sum(e.time_range.elapsed_us() for e in events) / 1e6,
+                ops=len(events), d2h=sum("DtoH" in e.name for e in events), events=events)
+
+
+def parallel_run(dev, packed, gg, kind: str, scheme: str, fused: bool, truth) -> dict:
+    """One ``run_parallel`` on ``dev`` (the MLN matcher at the paper's weights,
+    or RULES), the launch counters set to 0 just before it and read just
+    after: its ``EMResult``, P/R/F1, synchronized wall and launch counts."""
+    from repro_torch.core import metrics
+    from repro_torch.core.closure import transitive_closure
+    from repro_torch.core.mln import MLNMatcher, PAPER_LEARNED
+    from repro_torch.core.parallel import run_parallel
+    from repro_torch.core.rules import RulesMatcher
+
+    matcher = (RulesMatcher(device=dev) if kind == "rules"
+               else MLNMatcher(PAPER_LEARNED, device=dev))
+    _zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = run_parallel(packed, matcher, gg, scheme=scheme, fused=fused, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    prf = metrics.prf(transitive_closure(res.matches), truth, candidate_gids=gg.gids)
+    return dict(result=res, prf=prf, wall=wall, launches=launches)
+
+
+def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
+    """The round-parallel engine on ``dev`` against ``EXPECTED_PARALLEL`` on
+    phase 3's cover and grounding, ``resolve(parallel=True)``, and the
+    streaming service on it against ``EXPECTED_STREAM_PARALLEL`` and in
+    spill mode.  ``seq_icm``/``rules_icm``: the sequential runs' ``icm_sweep``
+    launches, printed beside this phase's.  Returns the launch counts
+    summed over its counted runs."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.mln import MLNMatcher, PAPER_LEARNED
+    from repro_torch.core.parallel import run_parallel
+    from repro_torch.data.synthetic import SynthConfig, make_dataset
+
+    t_phase = time.perf_counter()
+    ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
+    truth = ds.entities.truth
+    packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
+    total = dict.fromkeys(KERNELS, 0)
+
+    def count(lc):
+        for name, n in lc.items():
+            total[name] += n
+
+    for (kind, scheme, fused), want in EXPECTED_PARALLEL.items():
+        tag = f"{kind} {scheme} {'fused' if fused else 'legacy'}"
+        run = parallel_run(dev, packed, gg, kind, scheme, fused, truth)
+        r, prf, lc = run["result"], run["prf"], run["launches"]
+        count(lc)
+        got = (r.rounds, r.neighborhood_evals, r.messages_emitted, r.messages_promoted,
+               len(r.matches), round(prf.precision, 4), round(prf.recall, 4), round(prf.f1, 4),
+               r.dispatches, r.full_rounds, r.history, r.promote_host_scans)
+        require(got == want, f"parallel {tag}: got {got}, expected {want}")
+        digest = gid_digest(r.matches.gids)
+        if kind == "mln":
+            require(np.array_equal(r.matches.gids, resolved[scheme].result.matches.gids),
+                    f"parallel {tag}: gids differ from the sequential {scheme} run's")
+        want_digest = PARALLEL_GID_DIGEST[scheme] if kind == "mln" else RULES_GID_DIGEST
+        require(digest == want_digest, f"parallel {tag}: gid digest {digest}, expected {want_digest}")
+        require(lc["icm_sweep"] > 0, f"parallel {tag}: icm_sweep was never launched")
+        seq = (seq_icm if kind == "mln" else rules_icm)[scheme]
+        log(f"[parallel] {tag}: wall {run['wall']:.2f} s (EMResult {r.wall_time_s:.2f} s), "
+            f"dispatches {r.dispatches}, rounds {r.rounds} {r.history}, evals "
+            f"{r.neighborhood_evals}, messages {r.messages_emitted}/{r.messages_promoted}, "
+            f"matches {len(r.matches)}, F1 {prf.f1:.4f}, gid digest {digest[:16]}...; "
+            f"icm_sweep launches {lc['icm_sweep']} (sequential {scheme}: {seq}); launches {lc}")
+
+    # the pipeline's own entry point, cover included
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = pipeline.resolve(ds.entities, ds.relations, scheme="mmp", parallel=True, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    lc = _read_counts()
+    count(lc)
+    prf = pipeline.evaluate(res, truth)
+    got = (len(res.result.matches), round(prf.precision, 4), round(prf.recall, 4),
+           round(prf.f1, 4), res.result.dispatches, gid_digest(res.result.matches.gids))
+    want = (3000, *_MMP, 9, PARALLEL_GID_DIGEST["mmp"])
+    require(got == want, f"resolve(parallel=True) mmp: got {got}, expected {want}")
+    require(lc["icm_sweep"] > 0 and lc["ngram_sim"] > 0,
+            f"resolve(parallel=True) mmp: kernels not launched: {lc}")
+    log(f"[parallel] resolve(parallel=True) mmp: wall {wall:.2f} s (cover "
+        f"{res.cover_time_s:.2f} s, matching {res.result.wall_time_s:.2f} s), "
+        f"dispatches {res.result.dispatches}, matches {len(res.result.matches)}, "
+        f"F1 {prf.f1:.4f}; launches {lc}")
+
+    # where the fused mmp run's time goes (not counted)
+    prof = _profile_run(dev, lambda: run_parallel(
+        packed, MLNMatcher(PAPER_LEARNED, device=dev), gg, scheme="mmp", device=dev))
+    log(f"[parallel] mmp fused under torch.profiler: wall {prof['wall']:.2f} s, device busy "
+        + (f"{prof['busy']:.3f} s ({100 * prof['busy'] / prof['wall']:.1f}%)" if prof["ops"]
+           else "not measured (the profiler saw no device activity)")
+        + f", {prof['ops']} device ops, {prof['d2h']} of them device-to-host copies "
+        "(the sequential driver's share: phase 8, `[profile]`)")
+
+    batches = stream_schedules(ds)[29]
+    for scheme, want in EXPECTED_STREAM_PARALLEL.items():
+        run = stream_run(dev, scheme, batches, parallel=True)
+        got = {k: run[k] for k in want}
+        require(got == want, f"parallel stream {scheme}: got {got}, expected {want}")
+        lc = run["launches"]
+        count(lc)
+        require(lc["minhash"] == len(batches),
+                f"parallel stream {scheme}: minhash launched {lc['minhash']} times in "
+                f"{len(batches)} ingests")
+        require(lc["icm_sweep"] > 0, f"parallel stream {scheme}: icm_sweep was never launched")
+        log(f"[parallel] stream {scheme}, {len(batches)} batches: wall {run['wall']:.2f} s, "
+            f"ingest p50 {run['p50'] * 1e3:.1f} ms p99 {run['p99'] * 1e3:.1f} ms; spans s: "
+            + ", ".join(f"{n.removeprefix('ingest.')} {t:.3f}" for n, t in run["spans"].items())
+            + f"; dispatches {run['dispatches']}, matches {run['matches']}, evals {run['evals']}, "
+            f"re-ground rows {run['reground_rows']}, launches {lc}")
+    spill = stream_run(dev, "mmp", batches, parallel=True, gcache_capacity=1)
+    count(spill["launches"])
+    want_digest = EXPECTED_STREAM_PARALLEL["mmp"]["match_digest"]
+    require(spill["match_digest"] == want_digest,
+            f"spill-mode stream: match digest {spill['match_digest']}, expected {want_digest}")
+    require(spill["peak_resident_bins"] <= 1 and spill["cache_evictions"] > 0
+            and spill["cold_regrounds"] > 0,
+            f"spill-mode stream: peak {spill['peak_resident_bins']} bins, "
+            f"{spill['cache_evictions']} evictions, {spill['cold_regrounds']} cold re-grounds")
+    log(f"[parallel] stream mmp, gcache_capacity=1: wall {spill['wall']:.2f} s, ingest p50 "
+        f"{spill['p50'] * 1e3:.1f} ms p99 {spill['p99'] * 1e3:.1f} ms; spans s: "
+        + ", ".join(f"{n.removeprefix('ingest.')} {t:.3f}" for n, t in spill["spans"].items())
+        + f"; dispatches {spill['dispatches']}, evals {spill['evals']}, matches "
+        f"{spill['matches']}, peak "
+        f"resident bins {spill['peak_resident_bins']}, evictions {spill['cache_evictions']}, "
+        f"cold re-grounds {spill['cold_regrounds']}, re-ground rows {spill['reground_rows']}, "
+        f"launches {spill['launches']}")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -895,34 +1121,29 @@ def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     """Where the matcher's time goes: the first ``max_evals`` MMP evaluations
     (cover excluded) once more under torch.profiler, device activity only;
     device busy = summed kernel and copy time over the wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.driver import run_mmp
     from repro_torch.core.mln import MLNMatcher, PAPER_LEARNED
 
     matcher = MLNMatcher(PAPER_LEARNED, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = run_mmp(fixpoint.packed, matcher, fixpoint.gg, max_evals=max_evals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    out = {}
+
+    def run():
+        out["res"] = run_mmp(fixpoint.packed, matcher, fixpoint.gg, max_evals=max_evals)
+
+    prof = _profile_run(dev, run)
+    res, wall, busy = out["res"], prof["wall"], prof["busy"]
     per_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.removeprefix("void ").removeprefix("(anonymous namespace)::")
-            per_name.setdefault(name, []).append(e.time_range.elapsed_us())
+    for e in prof["events"]:
+        name = e.name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+        per_name.setdefault(name, []).append(e.time_range.elapsed_us())
     if not per_name:
         log("[profile] device time not measured (the profiler saw no device activity)")
         return
-    busy = sum(sum(v) for v in per_name.values()) / 1e6
     top = sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     log(
         f"[profile] mmp, first {res.neighborhood_evals} evals: wall {wall:.2f} s under the "
         f"profiler, device busy {busy:.3f} s ({100 * busy / wall:.1f}%), "
-        f"{sum(len(v) for v in per_name.values())} device ops; top: "
+        f"{prof['ops']} device ops, {prof['d2h']} of them device-to-host copies; top: "
         + "; ".join(f"{n[:44]} {sum(v) / 1e3:.1f} ms x{len(v)}" for n, v in top)
     )
 
@@ -959,8 +1180,9 @@ def main(argv: list[str] | None = None) -> int:
     rows = phase_kernels(dev, args.only)
     if args.kernels_only:
         return 0
-    launches, resolved = phase_pipeline(dev)
-    rules_launches = phase_rules(dev, resolved)
+    launches, resolved, seq_icm = phase_pipeline(dev)
+    rules_launches, rules_icm = phase_rules(dev, resolved)
+    parallel_launches = phase_parallel(dev, resolved, seq_icm, rules_icm)
     stream_launches = phase_stream(dev, resolved)
     lm_launches = phase_lm(dev)
     phase_profile(dev, resolved["mmp"])
@@ -980,9 +1202,10 @@ def main(argv: list[str] | None = None) -> int:
             name=name, route="cuda", source=meta["source"],
             **({"sources": meta["sources"]} if "sources" in meta else {}),
             replaces=meta["replaces"],
-            launches=(launches[name] + rules_launches[name] + stream_launches[name]
-                      + lm_launches[name]),
+            launches=(launches[name] + rules_launches[name] + parallel_launches[name]
+                      + stream_launches[name] + lm_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
+                              "parallel": parallel_launches[name],
                               "stream": stream_launches[name], "lm": lm_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),

@@ -2,9 +2,9 @@
 
 These are the paper's algorithms verbatim: a host-side worklist of
 active neighborhoods, the (batched, PyTorch) matcher as the black box,
-and host-side message bookkeeping.  The round-parallel version of the
-reference (``core/parallel.py``) is not ported yet; Theorems 2/4
-(consistency) guarantee both produce the same fixpoint.
+and host-side message bookkeeping.  The round-parallel engine
+(``core/parallel.py``) evaluates whole bins per round instead; Theorems
+2/4 (consistency) guarantee both produce the same fixpoint.
 """
 
 from __future__ import annotations

@@ -47,8 +47,9 @@ class GlobalGrounding:
     coup_p: np.ndarray  # (Nc,) int32 index into gids
     coup_q: np.ndarray  # (Nc,) int32 index into gids (p < q)
     w_co: float
-    # Device copies of (u, coup_p, coup_q, w_co) for the round-parallel
-    # engine, cached on the grounding object; None on the sequential path.
+    # (device, (u, coup_p, coup_q, w_co) on it) for the round-parallel
+    # engine's promoter, cached on the grounding object; None on the
+    # sequential path.
     _device: tuple | None = dataclasses.field(
         default=None, repr=False, compare=False
     )

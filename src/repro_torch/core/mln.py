@@ -345,6 +345,10 @@ class MLNMatcher:
     def ground(self, batch: NeighborhoodBatch) -> Grounding:
         return ground(batch, self.weights, self.device)
 
+    def parallel_backend(self) -> tuple[str, MLNWeights]:
+        """Grounding key for the round-parallel engine (core.parallel)."""
+        return ("mln", self.weights)
+
     # -- Type-I interface ---------------------------------------------------
     def run(
         self,

@@ -1,9 +1,10 @@
 """End-to-end EM pipeline: dataset -> cover -> message passing -> metrics.
 
 This is the user-facing entry point gluing together the paper's stages:
-canopy covering (§4), packing, global grounding, and a sequential
-message-passing scheme (§5).  ``device=None`` runs the kernels on CUDA
-and raises when there is no GPU; pass ``device="cpu"`` for the CPU.
+canopy covering (§4), packing, global grounding, and a message-passing
+scheme (§5), sequential or round-parallel (§6.3).  ``device=None`` runs
+the kernels on CUDA and raises when there is no GPU; pass
+``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.core.cover import PackedCover, build_cover, pack_cover
 from repro_torch.core.driver import EMResult, run_mmp, run_nomp, run_smp
 from repro_torch.core.global_grounding import GlobalGrounding, build_global_grounding, ub_matches
 from repro_torch.core.mln import MLNMatcher, MLNWeights, PAPER_LEARNED
+from repro_torch.core.parallel import run_parallel
 from repro_torch.core.types import EntityTable, MatchStore, Relations
 from repro_torch.kernels.common import resolve_device
 
@@ -74,12 +76,12 @@ def resolve(
     t_loose: float = 0.70,
     device=None,
 ) -> Resolved:
-    """Run the full pipeline with the chosen scheme/matcher."""
-    if parallel:
-        raise NotImplementedError(
-            "the round-parallel engine is not ported yet: see ROADMAP.md, "
-            "Queue 1, item 5 (Round-parallel engine)"
-        )
+    """Run the full pipeline with the chosen scheme/matcher.
+
+    ``parallel=True`` runs the round-parallel engine
+    (:func:`repro_torch.core.parallel.run_parallel`) instead of the
+    sequential drivers; both reach the same fixpoint (Thms. 2/4).
+    """
     device = resolve_device(device)
     cover_time = 0.0
     if packed is None or gg is None:
@@ -95,7 +97,9 @@ def resolve(
     if matcher is None:
         matcher = MLNMatcher(weights, device=device)
 
-    if scheme == "nomp":
+    if parallel:
+        result = run_parallel(packed, matcher, gg, scheme=scheme, device=device)
+    elif scheme == "nomp":
         result = run_nomp(packed, matcher)
     elif scheme == "smp":
         result = run_smp(packed, matcher)

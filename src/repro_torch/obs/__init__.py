@@ -6,10 +6,15 @@
 * :mod:`repro_torch.obs.tracing` — nestable ``span()`` context managers
   with optional device fencing; the span taxonomy is in its docstring.
 * :mod:`repro_torch.obs.transfer` — host→device upload-byte accounting.
-
-The reference's exporters (``repro.obs.export``) are not ported yet.
+* :mod:`repro_torch.obs.export` — JSON snapshots, Chrome-trace/Perfetto
+  ``trace_event`` files, opt-in ``torch.profiler`` sessions.
 """
 
+from repro_torch.obs.export import (  # noqa: F401
+    profiler_session,
+    write_chrome_trace,
+    write_snapshot,
+)
 from repro_torch.obs.registry import (  # noqa: F401
     MetricsRegistry,
     get_registry,
@@ -23,8 +28,11 @@ __all__ = [
     "Span",
     "SpanRecord",
     "get_registry",
+    "profiler_session",
     "record_transfer",
     "reset",
     "span",
     "total_upload_bytes",
+    "write_chrome_trace",
+    "write_snapshot",
 ]

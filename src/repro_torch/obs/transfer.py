@@ -1,15 +1,14 @@
 """Device-transfer accounting: host→device upload bytes, by site.
 
-The reference's serving path has three transfer sites, each with a
-named counter.  The port keeps the counters' names; its sequential
-streaming path has none of the three sites yet (they belong to the
-round-parallel engine, not ported), so ``IngestReport.upload_bytes``
-reads 0 there, as it does in the reference's sequential engine:
+The serving path has three transfer sites, each with a named counter,
+all in the round-parallel engine (:mod:`repro_torch.core.parallel`);
+the sequential engine has none, so ``IngestReport.upload_bytes`` reads
+0 there, as it does in the reference's sequential engine:
 
-* ``transfer.gcache_bytes`` — raw row tensors shipped to the grounding
-  dispatches (the reference's ``core.parallel.GroundingCache``: cold
-  grounds and splices).  O(rows re-ground), i.e. O(dirty) on the
-  streaming path.
+* ``transfer.gcache_bytes`` — raw row arrays shipped to the grounding
+  calls (``core.parallel.GroundingCache``: cold grounds and splices,
+  pow2-padded).  O(rows re-ground), i.e. O(dirty) on the streaming
+  path.
 * ``transfer.promoter_bytes`` — ``DevicePromoter`` uploads: the global
   grounding's ``u``/coupling COO (once per grounding *version* — today
   O(pairs) per ingest), the pool

@@ -45,10 +45,15 @@ Thread-safety contract (per lock):
   GIL), so ``resolve``/``resolve_many``/``snapshot``/``clusters`` are
   lock-free and safe from any number of threads.
 
-Not ported yet, and refused when asked for: the round-parallel engine
-(``parallel=True``, ``ROADMAP.md`` Queue 1 item 5), string matcher
-families (item 6), the write-ahead log, checkpoints and ``recover``
-(item 8), and sharded serving (item 9).
+``ServiceConfig(parallel=True)`` advances the fixpoint with the
+round-parallel engine (:mod:`repro_torch.core.parallel`), whose device
+grounding cache persists across ingests and can be bounded
+(``gcache_capacity`` / ``gcache_hbm_budget``: an LRU over bins, cold
+bins re-ground on demand, bit for bit).
+
+Not ported yet, and refused when asked for: string matcher families
+(``ROADMAP.md`` Queue 1 item 6), the write-ahead log, checkpoints and
+``recover`` (item 8), and sharded serving (item 9).
 """
 
 from __future__ import annotations
@@ -86,11 +91,6 @@ FAMILIES_NOT_PORTED = (
     "the matcher registry and its families are not ported yet: see "
     "ROADMAP.md, Queue 1, item 6 (Matcher registry and families)"
 )
-GCACHE_NOT_PORTED = (
-    "gcache_capacity / gcache_hbm_budget bound the round-parallel "
-    "engine's grounding cache, which is not ported yet: see ROADMAP.md, "
-    "Queue 1, item 5 (Round-parallel engine)"
-)
 
 
 @dataclasses.dataclass
@@ -105,8 +105,8 @@ class IngestReport:
     replay_visits: int  # ids swept by the localized canopy replay
     grounding_pair_visits: int  # pairs patched in the grounding (mmp)
     wall_time_s: float
-    # device rows re-ground this ingest (the reference's parallel
-    # engine; 0 on the sequential engine, the only one ported)
+    # device rows re-ground this ingest (parallel engine: clean bins hit
+    # the persistent grounding cache; 0 on the sequential engine)
     reground_rows: int = 0
     # neighborhood rows (re)staged by the incremental cover assembly +
     # packed-array splice (CoverDelta) — O(dirty), not O(neighborhoods)
@@ -114,14 +114,14 @@ class IngestReport:
     # grounding array rows spliced by GroundingMaintainer.grounding()
     # (mmp) — O(delta), not the O(candidate pairs) full materialization
     grounding_splice_rows: int = 0
-    # Bounded serving memory (the reference's parallel engine, LRU
-    # GroundingCache; 0 here): high-water mark of array-resident bins,
+    # Bounded serving memory (parallel engine, LRU GroundingCache; 0 on
+    # the sequential engine): high-water mark of tensor-resident bins,
     # plus this ingest's LRU evictions and cold re-grounds.
     peak_resident_bins: int = 0
     cache_evictions: int = 0
     cold_regrounds: int = 0
     # step-7 promotion passes on the host coupling-COO walk (every pass
-    # of the sequential run_mmp)
+    # of the sequential run_mmp; 0 on the parallel engine's promoter)
     promote_host_scans: int = 0
     # packed-array append accounting (CoverDelta backing buffers):
     # tail rows written by the append path and rows memcpy'd by
@@ -130,8 +130,8 @@ class IngestReport:
     growth_copy_rows: int = 0
     # host->device bytes uploaded during this ingest, summed over the
     # three transfer sites of repro_torch.obs.transfer (all on the
-    # round-parallel engine, so 0 here) — the per-ingest delta of the
-    # cumulative ``transfer.*_bytes`` registry counters
+    # round-parallel engine, so 0 on the sequential one) — the
+    # per-ingest delta of the cumulative ``transfer.*_bytes`` counters
     upload_bytes: int = 0
 
 
@@ -246,8 +246,10 @@ class ServiceConfig:
     ``matcher`` accepts a matcher instance, or ``None`` for the paper's
     collective MLN at ``weights``.  A registered family name (a string)
     waits for the matcher registry (``ROADMAP.md`` Queue 1 item 6) and
-    raises.  ``parallel``, ``gcache_capacity``, ``gcache_hbm_budget``
-    and ``durability_dir`` raise too: their engines are not ported yet.
+    raises; ``durability_dir`` raises too (item 8).  ``parallel`` runs
+    the round-parallel engine; ``gcache_capacity`` /
+    ``gcache_hbm_budget`` bound its grounding cache's resident bins /
+    bytes (the sequential engine has no cache and ignores them).
     """
 
     scheme: str = "smp"  # 'nomp' | 'smp' | 'mmp'
@@ -302,8 +304,7 @@ class ResolveService:
         raises without a GPU; pass ``device="cpu"`` for the plain
         versions on the CPU.
 
-        ``shard``, ``config.parallel``, ``config.gcache_capacity`` /
-        ``gcache_hbm_budget`` and ``config.durability_dir`` raise
+        ``shard`` and ``config.durability_dir`` raise
         ``NotImplementedError`` naming the ``ROADMAP.md`` item that
         ports them."""
         if deprecated_kwargs:
@@ -324,8 +325,6 @@ class ResolveService:
             raise NotImplementedError(SHARD_NOT_PORTED)
         if cfg.durability_dir is not None:
             raise NotImplementedError(DURABILITY_NOT_PORTED)
-        if cfg.gcache_capacity is not None or cfg.gcache_hbm_budget is not None:
-            raise NotImplementedError(GCACHE_NOT_PORTED)
         self.config = cfg
         self.weights = cfg.weights
         self.scheme = cfg.scheme
@@ -350,7 +349,12 @@ class ResolveService:
         if bind is not None:
             bind(self.delta.names)
         self.engine = IncrementalEngine(
-            matcher, scheme=cfg.scheme, parallel=cfg.parallel
+            matcher,
+            scheme=cfg.scheme,
+            parallel=cfg.parallel,
+            gcache_capacity=cfg.gcache_capacity,
+            gcache_hbm_budget=cfg.gcache_hbm_budget,
+            device=self.device,
         )
         # MMP needs the global grounding; maintained incrementally so no
         # ingest pays the O(corpus) from-scratch build.  The delta's

@@ -21,6 +21,7 @@ sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+assert {{"repro_torch.core.parallel", "repro_torch.obs.export"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -91,15 +92,6 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     assert cpu_engine.device.type == "cpu"
 
 
-def test_parallel_engine_not_ported_yet():
-    from repro_torch.core import pipeline
-    from repro_torch.data.synthetic import SynthConfig, make_dataset
-
-    ds = make_dataset(SynthConfig.hepth(scale=0.035, seed=7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.resolve(ds.entities, ds.relations, parallel=True, device="cpu")
-
-
 KERNELS = ["icm_sweep", "ngram_sim", "mln_score", "minhash", "flash_attn"]
 
 
@@ -167,22 +159,17 @@ def test_resolve_service_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     assert ResolveService(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", [
-    "parallel", "durability_dir", "shard", "string_matcher", "gcache_capacity", "recover",
-])
+@pytest.mark.parametrize("what", ["durability_dir", "shard", "string_matcher", "recover"])
 def test_unported_service_options_raise(what, tmp_path):
     """Each option whose engine is not ported yet raises and names its ROADMAP item."""
     from repro_torch.stream import ResolveService, ServiceConfig
 
     make = {
-        "parallel": lambda: ResolveService(ServiceConfig(parallel=True), device="cpu"),
         "durability_dir": lambda: ResolveService(
             ServiceConfig(durability_dir=str(tmp_path)), device="cpu"),
         "shard": lambda: ResolveService(shard=object(), device="cpu"),
         "string_matcher": lambda: ResolveService(
             ServiceConfig(matcher="hungarian"), device="cpu"),
-        "gcache_capacity": lambda: ResolveService(
-            ServiceConfig(gcache_capacity=2), device="cpu"),
         "recover": lambda: ResolveService.recover(str(tmp_path)),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
