@@ -44,7 +44,32 @@
    digests must equal the reference table ``EXPECTED_STREAM``; the
    one-batch gids must equal phase 3's smp gids.  Prints each run's wall
    time, ingest p50/p99 and the time of each ingest stage (tracing spans).
-7. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+7. Matchers (``matchers``): every family of the registry
+   (``repro_torch.core.matchers``) through ``resolve(scheme="smp")`` on CUDA
+   on ``make_bipartite(60, seed=1)``, with the sequential driver and, for the
+   device families, the parallel engine, held to ``EXPECTED_MATCHERS``;
+   ``run_parallel`` must refuse the host-only families (``TypeError``).  Then
+   the embedding family at the users' scale, on phase 3's corpus and cover:
+   the ``ngram`` encoder on both engines against ``EXPECTED_EMBED_NGRAM``
+   and ``EMBED_NGRAM_DIGEST``, and the ``lm`` encoder (parallel) on the card
+   against the port on the CPU from the same weights: embeddings within
+   ``LM_EMBED_TOL``, match sets equal but for pairs whose cosine lies within
+   the embeddings' error of ``tau`` (counted), ``flash_attn`` launched twice
+   a prefill.  ``icm_sweep`` and ``flash_attn`` must launch in the phase.
+8. Serving (``serving``): ``repro_torch.stream.ServingFrontend`` with
+   ``ServingConfig(max_batch=1)`` over a durable
+   ``ServiceConfig(scheme="mmp", parallel=True, durability_dir=...,
+   checkpoint_every=8)`` on CUDA, fed the 29 batches as 29 requests: the
+   counters and digests of ``EXPECTED_STREAM_PARALLEL["mmp"]``, ``minhash``
+   launched 29 times, 2 checkpoints kept and the WAL collected past the
+   last.  Then this script again as a subprocess (``--crash-worker``) that
+   dies at hit 12 of the ``rounds`` fault site (exit 117), the directory
+   recovered on the card with ``ResolveService.recover`` and the rest
+   re-submitted: the same state digest.  Last a coalescing run at the
+   default ``ServingConfig()``, one request a paper, for throughput.  Prints
+   requests and entities a second, the queue wait p50/p99, the WAL bytes,
+   the checkpoint size and save time, ``recover.replayed`` and its wall.
+9. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
    layers, weights drawn on the CPU with ``init_params``, a prefill of 4
    prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
    CPU's tokens; the largest logit difference over the largest logit must
@@ -59,9 +84,9 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-8. Profile: the first 100 MMP evaluations once more under
+10. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-9. The card's name and power limit, the kernel list as one JSON line, and
+11. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -72,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import subprocess
@@ -179,6 +205,40 @@ EXPECTED_STREAM_PARALLEL = {
         state_digest="766e56e7812489d69309cda1ec2cf50b98df795cd60029bb15ebe840869e1c49",
     ),
 }
+# Every registered matcher family through ``resolve(scheme="smp")`` on
+# ``make_bipartite(60, seed=1)`` (302 references, the fig4_matchers corpus)
+# with the reference package: (family, parallel) -> (evals, matches, P, R,
+# F1, first 16 hex digits of ``gid_digest``)
+BIPARTITE = dict(groups=60, seed=1, refs=302)
+_EXACT = (97, 1.0, 1.0, 1.0, "c35b14aaf4ed172a")
+_MLN_BIP = (102, 0.8291, 1.0, 0.9065, "322b210d323aefb2")
+EXPECTED_MATCHERS = {
+    ("embedding", False): (90, *_EXACT),
+    ("embedding", True): (180, *_EXACT),
+    ("hungarian", False): (90, *_EXACT),
+    ("hungarian_greedy", False): (90, 97, 0.9175, 0.9175, 0.9175, "0b296a6fb36349c9"),
+    ("mln", False): (90, *_MLN_BIP),
+    ("mln", True): (187, *_MLN_BIP),
+    ("mln_greedy", False): (90, *_MLN_BIP),
+    ("mln_greedy", True): (180, *_MLN_BIP),
+    ("rules", False): (90, *_MLN_BIP),
+    ("rules", True): (180, *_MLN_BIP),
+}
+# ``EmbeddingMatcher(encoder="ngram")`` bound to the names of phase 3's corpus,
+# smp on phase 3's cover, with the reference package: parallel -> (evals,
+# rounds, dispatches, matches, P, R, F1, encode_calls, encoded_ids); both
+# engines give the gids of ``EMBED_NGRAM_DIGEST``
+EXPECTED_EMBED_NGRAM = {
+    True: (769, 2, 1, 2293, 0.8799, 0.5106, 0.6462, 4, 1842),
+    False: (406, 1, 406, 2293, 0.8799, 0.5106, 0.6462, 229, 1842),
+}
+EMBED_NGRAM_DIGEST = "3d10dc4b13896c6c056632236002aa83640b39ae69d2ef3f973e31d1531624b6"
+# the lm encoder, card against CPU from the same weights: embeddings within
+LM_EMBED_TOL = 2e-3
+# the serving phase's durable service checkpoints every that many ingests,
+# and its crash worker dies at this hit of the ``rounds`` fault site
+SERVING_CKPT_EVERY = 8
+SERVING_CRASH_HIT = 12
 STREAM_SPANS = ("ingest.lsh", "ingest.replay", "ingest.cover_splice",
                 "ingest.grounding_splice", "ingest.rounds", "ingest.commit")
 
@@ -230,6 +290,12 @@ def _zero_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
+
+
+def _count_into(total: dict, lc: dict) -> None:
+    """Add the launch counts ``lc`` of one run into ``total``."""
+    for name, n in lc.items():
+        total[name] += n
 
 
 def log(msg: str) -> None:
@@ -647,7 +713,6 @@ def stream_run(dev, scheme: str, batches, **config) -> dict:
     from repro_torch import obs
     from repro_torch.core.mln import PAPER_LEARNED
     from repro_torch.stream import ResolveService, ServiceConfig
-    from repro_torch.stream.digest import match_digest, state_digest
 
     svc = ResolveService(ServiceConfig(scheme=scheme, weights=PAPER_LEARNED, **config),
                          device=dev)
@@ -665,6 +730,17 @@ def stream_run(dev, scheme: str, batches, **config) -> dict:
         service=svc, wall=wall, launches=launches,
         p50=float(np.percentile(ingest_s, 50)), p99=float(np.percentile(ingest_s, 99)),
         spans={n: spans.get(n, {}).get("total_s", 0.0) for n in STREAM_SPANS},
+        **service_summary(svc),
+    )
+
+
+def service_summary(svc) -> dict:
+    """The reference table's quantities of a ``ResolveService``, summed over
+    its ingest reports."""
+    from repro_torch.stream.digest import match_digest, state_digest
+
+    reports = svc.reports
+    return dict(
         matches=len(svc.matches), evals=sum(r.neighborhood_evals for r in reports),
         clusters=len(svc.clusters()),
         replay_visits=sum(r.replay_visits for r in reports),
@@ -709,8 +785,7 @@ def phase_stream(dev, resolved) -> dict:
         if n_batches == 1:
             require(np.array_equal(run["service"].matches.gids, resolved["smp"].result.matches.gids),
                     "one-batch stream and batch resolve give different smp gids")
-        for name, n in lc.items():
-            total[name] += n
+        _count_into(total, lc)
         log(
             f"[stream] {scheme}, {n_batches} batches: wall {run['wall']:.2f} s, ingest p50 "
             f"{run['p50'] * 1e3:.1f} ms p99 {run['p99'] * 1e3:.1f} ms; spans s: "
@@ -756,8 +831,7 @@ def phase_rules(dev, resolved) -> dict:
         digest = gid_digest(r.matches.gids)
         require(digest == RULES_GID_DIGEST,
                 f"rules {scheme}: gid digest {digest}, expected {RULES_GID_DIGEST}")
-        for name, n in lc.items():
-            total[name] += n
+        _count_into(total, lc)
         icm_runs[scheme] = lc["icm_sweep"]
         log(f"[rules] {scheme}: wall {wall:.2f} s (matching {r.wall_time_s:.2f} s), evals "
             f"{r.neighborhood_evals}, matches {len(r.matches)}, P {prf.precision:.4f} "
@@ -831,11 +905,7 @@ def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
     truth = ds.entities.truth
     packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
     total = dict.fromkeys(KERNELS, 0)
-
-    def count(lc):
-        for name, n in lc.items():
-            total[name] += n
-
+    count = functools.partial(_count_into, total)
     for (kind, scheme, fused), want in EXPECTED_PARALLEL.items():
         tag = f"{kind} {scheme} {'fused' if fused else 'legacy'}"
         run = parallel_run(dev, packed, gg, kind, scheme, fused, truth)
@@ -886,7 +956,7 @@ def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
         + (f"{prof['busy']:.3f} s ({100 * prof['busy'] / prof['wall']:.1f}%)" if prof["ops"]
            else "not measured (the profiler saw no device activity)")
         + f", {prof['ops']} device ops, {prof['d2h']} of them device-to-host copies "
-        "(the sequential driver's share: phase 8, `[profile]`)")
+        "(the sequential driver's share: phase 10, `[profile]`)")
 
     batches = stream_schedules(ds)[29]
     for scheme, want in EXPECTED_STREAM_PARALLEL.items():
@@ -922,6 +992,316 @@ def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
         f"cold re-grounds {spill['cold_regrounds']}, re-ground rows {spill['reground_rows']}, "
         f"launches {spill['launches']}")
     log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _prf4(prf) -> tuple:
+    return round(prf.precision, 4), round(prf.recall, 4), round(prf.f1, 4)
+
+
+def matcher_families(dev, total: dict) -> None:
+    """Every registered family through ``resolve(scheme="smp")`` on the
+    bipartite corpus on ``dev`` (the sequential driver, and the parallel
+    engine for the device families), held to ``EXPECTED_MATCHERS``;
+    ``run_parallel`` must refuse the host-only families."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.matchers import get_matcher, list_matchers, matcher_info
+    from repro_torch.core.parallel import run_parallel
+    from repro_torch.data.synthetic import make_bipartite
+
+    ds = make_bipartite(BIPARTITE["groups"], seed=BIPARTITE["seed"])
+    require(len(ds.entities) == BIPARTITE["refs"], "bipartite corpus size changed")
+    packed, gg, _ = pipeline.prepare(ds.entities, ds.relations, device=dev)
+    runs = [(n, par) for n in list_matchers() for par in (False, True)
+            if not par or matcher_info(n).device_parallel]
+    require(sorted(runs) == sorted(EXPECTED_MATCHERS), f"families changed: {runs}")
+    for name, par in runs:
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = pipeline.resolve(ds.entities, ds.relations, scheme="smp", packed=packed, gg=gg,
+                               matcher=get_matcher(name, device=dev), parallel=par, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        lc = _read_counts()
+        _count_into(total, lc)
+        r = res.result
+        got = (r.neighborhood_evals, len(r.matches), *_prf4(pipeline.evaluate(res, ds.entities.truth)),
+               gid_digest(r.matches.gids)[:16])
+        want = EXPECTED_MATCHERS[(name, par)]
+        tag = f"{name} {'parallel' if par else 'sequential'}"
+        require(got == want, f"matchers {tag}: got {got}, expected {want}")
+        if name.startswith(("mln", "rules")):
+            require(lc["icm_sweep"] > 0, f"matchers {tag}: icm_sweep was never launched")
+        log(f"[matchers] bipartite {tag}: wall {wall:.2f} s, evals {got[0]}, matches {got[1]}, "
+            f"P/R/F1 {got[2]}/{got[3]}/{got[4]}, gid digest {got[5]}, launches {lc}")
+    for name in list_matchers():
+        if matcher_info(name).device_parallel:
+            continue
+        try:
+            run_parallel(packed, get_matcher(name, device=dev), scheme="smp", device=dev)
+        except TypeError as e:
+            log(f"[matchers] run_parallel refuses {name}: {str(e)[:60]}...")
+        else:
+            raise RuntimeError(f"run_parallel accepted the host-only family {name}")
+
+
+def embed_ngram(dev, ds, packed, gg, total: dict) -> None:
+    """The ngram embedding family at the users' scale (phase 3's corpus and
+    cover), both engines, held to ``EXPECTED_EMBED_NGRAM``."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.matchers.embedding import EmbeddingMatcher
+
+    for par, want in EXPECTED_EMBED_NGRAM.items():
+        m = EmbeddingMatcher(encoder="ngram", device=dev)
+        m.bind_names(list(ds.entities.names))
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = pipeline.resolve(ds.entities, ds.relations, scheme="smp", packed=packed, gg=gg,
+                               matcher=m, parallel=par, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        _count_into(total, _read_counts())
+        r = res.result
+        got = (r.neighborhood_evals, r.rounds, r.dispatches, len(r.matches),
+               *_prf4(pipeline.evaluate(res, ds.entities.truth)), m.encode_calls, m.encoded_ids)
+        tag = f"ngram {'parallel' if par else 'sequential'}"
+        require(got == want, f"matchers {tag}: got {got}, expected {want}")
+        digest = gid_digest(r.matches.gids)
+        require(digest == EMBED_NGRAM_DIGEST, f"matchers {tag}: gid digest {digest}")
+        log(f"[matchers] hepth {tag}: wall {wall:.2f} s (matching {r.wall_time_s:.2f} s), evals "
+            f"{got[0]}, rounds {got[1]}, dispatches {got[2]}, matches {got[3]}, P/R/F1 "
+            f"{got[4]}/{got[5]}/{got[6]}, encode calls {got[7]}, encoded ids {got[8]}")
+
+
+def _lm_run(dev, ds, packed, gg):
+    from repro_torch.core import pipeline
+    from repro_torch.core.matchers.embedding import EmbeddingMatcher
+
+    m = EmbeddingMatcher(encoder="lm", device=dev)
+    m.bind_names(list(ds.entities.names))
+    t0 = time.perf_counter()
+    res = pipeline.resolve(ds.entities, ds.relations, scheme="smp", packed=packed, gg=gg,
+                           matcher=m, parallel=True, device=dev)
+    _sync(dev)
+    return m, res, time.perf_counter() - t0
+
+
+def embed_lm(dev, ds, packed, gg, total: dict) -> None:
+    """The lm embedding family, parallel smp, on the card against the port
+    on the CPU from the same weights (drawn on the CPU from the seed):
+    embeddings within ``LM_EMBED_TOL``; match sets equal but for pairs whose
+    cosine lies within the embeddings' error of ``tau``; ``flash_attn``
+    launched twice a prefill (the em_encoder's 2 layers)."""
+    import torch
+
+    from repro_torch.core import pairs as pairlib
+    from repro_torch.core import pipeline
+
+    _zero_counts()
+    with engine_probe(dev) as rec:
+        m, res, wall = _lm_run(dev, ds, packed, gg)
+    lc = _read_counts()
+    _count_into(total, lc)
+    prefills = len(rec["prefill_ms"])
+    require(rec["finite"], "lm encoder: logits not finite")
+    require(lc["flash_attn"] == 2 * prefills > 0,
+            f"lm encoder: flash_attn launched {lc['flash_attn']} times in {prefills} prefills")
+    m_cpu, res_cpu, wall_cpu = _lm_run(torch.device("cpu"), ds, packed, gg)
+    ids = sorted(m._memo)
+    require(ids == sorted(m_cpu._memo) == list(range(len(ds.entities))),
+            "lm encoder: card and CPU encoded different ids")
+    E = np.stack([m._memo[i] for i in ids])
+    E_cpu = np.stack([m_cpu._memo[i] for i in ids])
+    require(np.isfinite(E).all(), "lm encoder: embeddings not finite")
+    err = float(np.abs(E - E_cpu).max())
+    require(err <= LM_EMBED_TOL, f"lm encoder: card vs CPU embeddings differ by {err:.3g}")
+    e = float(np.linalg.norm(E - E_cpu, axis=1).max())
+    eps = 2 * e + e * e  # how far the error can move a cosine of unit vectors
+    got, want = set(res.result.matches.gids.tolist()), set(res_cpu.result.matches.gids.tolist())
+    differ = sorted(got ^ want)
+    a, b = pairlib.split_gid(np.asarray(differ, dtype=np.int64))
+    cos = (E_cpu[a] * E_cpu[b]).sum(-1)
+    require(bool(np.all(np.abs(cos - m.tau) <= eps)),
+            f"lm encoder: {len(differ)} differing matches, some further than {eps:.3g} from tau")
+    prf = pipeline.evaluate(res, ds.entities.truth)
+    log(f"[matchers] hepth lm parallel: wall {wall:.2f} s on the card ({wall_cpu:.2f} s on the "
+        f"CPU), {prefills} prefills, flash_attn launches {lc['flash_attn']}, evals "
+        f"{res.result.neighborhood_evals}, matches {len(got)} (CPU {len(want)}), F1 {prf.f1:.4f}; "
+        f"embeddings card vs CPU max |d| {err:.3g} (limit {LM_EMBED_TOL}), cosine error bound "
+        f"{eps:.3g}; {len(differ)} matches differ, each within it of tau; launches {lc}")
+
+
+def phase_matchers(dev, resolved) -> dict:
+    """The matcher registry's families on the card (see the module
+    docstring); returns the launch counts summed over its counted runs."""
+    from repro_torch.data.synthetic import SynthConfig, make_dataset
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    matcher_families(dev, total)
+    ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
+    packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
+    embed_ngram(dev, ds, packed, gg, total)
+    embed_lm(dev, ds, packed, gg, total)
+    require(total["icm_sweep"] > 0 and total["flash_attn"] > 0,
+            f"matchers: icm_sweep or flash_attn never launched: {total}")
+    log(f"[matchers] phase {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
+def _durable_config(dur_dir):
+    from repro_torch.core.mln import PAPER_LEARNED
+    from repro_torch.stream import ServiceConfig
+
+    return ServiceConfig(scheme="mmp", weights=PAPER_LEARNED, parallel=True,
+                         durability_dir=str(dur_dir), checkpoint_every=SERVING_CKPT_EVERY)
+
+
+def serve(svc, requests, config, start_first: bool = False) -> dict:
+    """``requests`` through a ``ServingFrontend`` over ``svc``: queued before
+    the worker starts (the flushes' schedule is then fixed), or submitted
+    to a running worker as fast as one producer can.  Returns the wall,
+    requests and entities a second and the queue-wait histogram."""
+    from repro_torch import obs
+    from repro_torch.stream import ServingFrontend
+
+    fe = ServingFrontend(svc, config, start=start_first)
+    t0 = time.perf_counter()
+    tickets = [fe.submit(b.names, b.edges, [int(i) for i in b.ids]) for b in requests]
+    fe.start()
+    require(fe.drain(900), "serving: the front end did not drain")
+    fe.close()
+    _sync(svc.device)
+    wall = time.perf_counter() - t0
+    for t in tickets:
+        t.wait(0)  # raises the flush's error, if any
+    reg = obs.get_registry()
+    n_entities = sum(len(b.names) for b in requests)
+    return dict(wall=wall, requests_s=len(requests) / wall, entities_s=n_entities / wall,
+                wait=reg.histogram("serve.queue.wait_ms").summary(),
+                flushes=reg.histogram("serve.batch.requests").summary()["count"])
+
+
+def crash_worker(dur_dir: str, device: str) -> int:
+    """The serving phase's worker that dies: the durable service on
+    ``device``, the 29 requests through the front end, a crash armed at the
+    ``SERVING_CRASH_HIT``-th hit of ``rounds`` (exit ``CRASH_EXIT_CODE``)."""
+    from repro_torch import faults
+    from repro_torch.data.synthetic import SynthConfig, arrival_stream, make_dataset
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.stream import ResolveService, ServingConfig
+
+    dev = resolve_device(device)
+    batches = arrival_stream(make_dataset(SynthConfig.hepth(scale=1.0, seed=7)), batch_size=64)
+    svc = ResolveService(_durable_config(dur_dir), device=dev)
+    faults.install(faults.FaultPlan.fail_once("rounds", hit=SERVING_CRASH_HIT, crash=True))
+    serve(svc, batches, ServingConfig(max_batch=1))
+    return 0  # not reached when the crash fires
+
+
+def phase_serving(dev) -> dict:
+    """The serving front end over a durable service on the card, a crashed
+    worker's directory recovered, and a coalescing run (see the module
+    docstring); returns the launch counts summed over its counted runs."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.data.synthetic import SynthConfig, arrival_stream, make_dataset
+    from repro_torch.faults import CRASH_EXIT_CODE
+    from repro_torch.stream import ResolveService, ServiceConfig, ServingConfig
+    from repro_torch.stream.digest import state_digest
+    from repro_torch.stream.wal import WriteAheadLog
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
+    batches = arrival_stream(ds, batch_size=64)
+    want = EXPECTED_STREAM_PARALLEL["mmp"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        # 1. the durable service behind the front end, one request a flush
+        obs.reset()
+        _zero_counts()
+        svc = ResolveService(_durable_config(tmp / "durable"), device=dev)
+        run = serve(svc, batches, ServingConfig(max_batch=1))
+        svc.close()
+        lc = _read_counts()
+        _count_into(total, lc)
+        got = {k: v for k, v in service_summary(svc).items() if k in want}
+        require(got == want, f"serving durable: got {got}, expected {want}")
+        require(lc["minhash"] == len(batches),
+                f"serving: minhash launched {lc['minhash']} times in {len(batches)} ingests")
+        require(run["flushes"] == len(batches), f"serving: {run['flushes']} flushes")
+        steps = svc._ckpt.all_steps()
+        last = len(batches) // SERVING_CKPT_EVERY * SERVING_CKPT_EVERY
+        require(steps == [last - SERVING_CKPT_EVERY, last], f"serving: checkpoints {steps}")
+        records, _ = WriteAheadLog.scan(tmp / "durable" / "wal")
+        require([r.seq for r in records] == list(range(last + 1, len(batches) + 1)),
+                f"serving: the WAL holds {[r.seq for r in records]} after the last checkpoint")
+        reg = obs.get_registry()
+        save_ms = reg.histogram("ckpt.save_ms").summary()
+        ckpt_disk = sum(f.stat().st_size for f in (tmp / "durable" / "ckpt").rglob("*")
+                        if f.is_file())
+        log(f"[serving] durable mmp parallel, {len(batches)} requests, max_batch=1: wall "
+            f"{run['wall']:.2f} s, {run['requests_s']:.2f} requests/s, {run['entities_s']:.1f} "
+            f"entities/s, queue wait ms p50 {run['wait']['p50']:.1f} p99 {run['wait']['p99']:.1f}; "
+            f"WAL {reg.value('wal.bytes')} bytes in {reg.value('wal.appends')} appends "
+            f"(append ms p50 {reg.histogram('wal.append_ms').summary()['p50']:.3f}); "
+            f"{reg.value('ckpt.saves')} checkpoints of {reg.value('ckpt.bytes') / reg.value('ckpt.saves') / 2**20:.2f} "
+            f"MiB each (kept {steps}, {ckpt_disk / 2**20:.2f} MiB on disk), save ms p50 "
+            f"{save_ms['p50']:.1f} max {save_ms['max']:.1f}; state digest {got['state_digest'][:16]}...; "
+            f"launches {lc}")
+
+        # 2. a worker killed mid-stream, then recovered here
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--crash-worker", str(tmp / "crash"),
+             "--crash-device", str(dev)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        require(child.returncode == CRASH_EXIT_CODE,
+                f"crash worker exited {child.returncode}, expected {CRASH_EXIT_CODE}:\n"
+                f"{child.stderr[-2000:]}")
+        crash_s = time.perf_counter() - t0
+        obs.reset()
+        _zero_counts()
+        t0 = time.perf_counter()
+        rec = ResolveService.recover(str(tmp / "crash"), _durable_config(tmp / "crash"), device=dev)
+        _sync(dev)
+        recover_s = time.perf_counter() - t0
+        reg = obs.get_registry()
+        replayed, rec_ms = reg.value("recover.replayed"), reg.histogram("recover.wall_ms").summary()
+        seq = rec._seq
+        run = serve(rec, batches[seq:], ServingConfig(max_batch=1))
+        rec.close()
+        lc = _read_counts()
+        _count_into(total, lc)
+        summ = service_summary(rec)
+        got = {k: summ[k] for k in ("matches", "clusters", "match_digest", "state_digest")}
+        require(got == {k: want[k] for k in got}, f"serving recovered: got {got}")
+        log(f"[serving] crash worker exited {child.returncode} after {crash_s:.1f} s (crash at "
+            f"rounds hit {SERVING_CRASH_HIT}); recover on the card: {recover_s:.2f} s "
+            f"(recover.wall_ms {rec_ms['max']:.1f}), recover.replayed {replayed}, resumed at "
+            f"seq {seq}, then {len(batches) - seq} requests in {run['wall']:.2f} s; state digest "
+            f"equals the uninterrupted run's; launches {lc}")
+
+    # 3. coalescing at the default budgets, one request a paper, for throughput
+    obs.reset()
+    _zero_counts()
+    papers = arrival_stream(ds, batch_size=1)
+    svc = ResolveService(ServiceConfig(scheme="mmp", parallel=True), device=dev)
+    run = serve(svc, papers, ServingConfig(), start_first=True)
+    lc = _read_counts()
+    _count_into(total, lc)
+    size = obs.get_registry().histogram("serve.batch.coalesced_size").summary()
+    require(svc.delta.n_entities == len(ds.entities) and len(svc.matches) > 0,
+            "serving coalesced: not every paper ingested")
+    log(f"[serving] coalescing, default ServingConfig (64 entities, 2 ms), {len(papers)} requests "
+        f"(one a paper): wall {run['wall']:.2f} s, {run['requests_s']:.1f} requests/s, "
+        f"{run['entities_s']:.1f} entities/s, {run['flushes']} flushes of {size['mean']:.1f} "
+        f"entities on average, queue wait ms p50 {run['wait']['p50']:.1f} p99 "
+        f"{run['wait']['p99']:.1f}; matches {len(svc.matches)}; launches {lc}")
+    log(f"[serving] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return total
 
 
@@ -1158,7 +1538,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="stop after phase 2 (build and kernels); prints no result line")
     ap.add_argument("--only", type=lambda v: v.split(","), metavar="KERNEL[,KERNEL]",
                     help="with --kernels-only: phase 2 for these kernels alone")
+    ap.add_argument("--crash-worker", metavar="DIR",
+                    help="the serving phase's worker: serve into DIR and die at the armed "
+                         "fault (exit 117); prints no result line")
+    ap.add_argument("--crash-device", default="cuda:0", help="the crash worker's device")
     args = ap.parse_args(argv)
+    if args.crash_worker:
+        return crash_worker(args.crash_worker, args.crash_device)
     try:
         import torch
     except ImportError:
@@ -1184,6 +1570,8 @@ def main(argv: list[str] | None = None) -> int:
     rules_launches, rules_icm = phase_rules(dev, resolved)
     parallel_launches = phase_parallel(dev, resolved, seq_icm, rules_icm)
     stream_launches = phase_stream(dev, resolved)
+    matchers_launches = phase_matchers(dev, resolved)
+    serving_launches = phase_serving(dev)
     lm_launches = phase_lm(dev)
     phase_profile(dev, resolved["mmp"])
 
@@ -1203,10 +1591,13 @@ def main(argv: list[str] | None = None) -> int:
             **({"sources": meta["sources"]} if "sources" in meta else {}),
             replaces=meta["replaces"],
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
-                      + stream_launches[name] + lm_launches[name]),
+                      + stream_launches[name] + matchers_launches[name]
+                      + serving_launches[name] + lm_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
-                              "stream": stream_launches[name], "lm": lm_launches[name]},
+                              "stream": stream_launches[name],
+                              "matchers": matchers_launches[name],
+                              "serving": serving_launches[name], "lm": lm_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

@@ -6,7 +6,8 @@ and the tests hold each module against its counterpart.  The package
 imports ``torch`` and ``numpy``, never ``jax`` and nothing of ``repro``.
 
 Entry points (``core.pipeline.resolve``/``prepare``, ``core.mln.MLNMatcher``,
-``core.cover.build_cover``) run on CUDA unless the caller passes
+``core.matchers.get_matcher``, ``core.cover.build_cover``,
+``stream.ResolveService`` and its ``recover``) run on CUDA unless the caller passes
 ``device="cpu"``; the CUDA kernels under ``csrc/`` are built with ``nvcc``
 at first use (see :mod:`repro_torch.kernels.build`).
 """

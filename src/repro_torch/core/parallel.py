@@ -98,10 +98,6 @@ MESH_NOT_PORTED = (
     "run_parallel runs on one device; a mesh waits for sharded serving: "
     "see ROADMAP.md, Queue 1, item 9 (Sharded serving)"
 )
-EMBED_NOT_PORTED = (
-    "the 'embed' grounding waits for the matcher registry: see ROADMAP.md, "
-    "Queue 1, item 6 (Matcher registry and families)"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +158,32 @@ def _rules_ground_builder(_cfg, device):
     return f
 
 
+def _embed_ground_builder(matcher, device):
+    """Host grounding for the embedding family: pairwise cosine from the
+    matcher's append-only per-id embedding memo, placed on ``device``.
+    Pure in the entity ids (embeddings are deterministic per id and
+    never mutated), so the grounding-cache splice/LRU contract holds
+    exactly as for the other kinds; only dirty rows' ids are ever
+    (re-)encoded."""
+
+    def f(entity_ids, entity_mask, coauthor, sim_level, pair_mask):
+        base, valid = matcher.ground_rows(
+            np.asarray(entity_ids), np.asarray(pair_mask)
+        )
+        B = base.shape[0]
+        return (
+            torch.as_tensor(base, device=device),
+            torch.as_tensor(valid, device=device),
+            torch.zeros((B, 1, 1), dtype=torch.float32, device=device),
+            torch.zeros((B, 1), dtype=torch.float32, device=device),
+        )
+
+    return f
+
+
 register_ground_builder("mln", _mln_ground_builder)
 register_ground_builder("rules", _rules_ground_builder)
+register_ground_builder("embed", _embed_ground_builder)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,13 +193,15 @@ def _ground_bin_fn(kind: str, cfg, device: torch.device):
 
     Returns a uniform 4-tuple with ``valid`` last: MLN bins get
     ``(u, u_raw, C, valid)``, RULES bins ``(lev, n_shared, link,
-    valid)``.  ``cfg`` must be hashable (weights dataclass or None).
+    valid)``, embedding bins ``(base, valid, 0, 0)``.  ``cfg`` must be
+    hashable (weights dataclass, matcher instance, or None): an
+    embedding matcher is keyed by identity, so two matchers never share
+    a memo.
     """
     if kind not in _GROUND_BUILDERS:
         raise TypeError(
             f"no grounding builder registered for kind {kind!r} "
             f"(registered: {sorted(_GROUND_BUILDERS)})"
-            + (f"; {EMBED_NOT_PORTED}" if kind == "embed" else "")
         )
     return _GROUND_BUILDERS[kind](cfg, device)
 
@@ -525,6 +547,9 @@ def _eval_bin_x(kind: str, g, ev_pos, ev_neg):
     if kind == "rules":
         lev, n_shared, link, valid = g
         return rules_fixpoint_batch(lev, n_shared, link, ev_pos, ev_neg, valid)
+    if kind == "embed":
+        base, valid, _z0, _z1 = g
+        return (base | ev_pos) & valid & ~ev_neg
     u, _, C, valid = g
     if kind == "mln_greedy":
         return closure_batch(u, C, ev_pos, ev_neg, valid)

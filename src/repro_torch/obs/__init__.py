@@ -8,6 +8,9 @@
 * :mod:`repro_torch.obs.transfer` — host→device upload-byte accounting.
 * :mod:`repro_torch.obs.export` — JSON snapshots, Chrome-trace/Perfetto
   ``trace_event`` files, opt-in ``torch.profiler`` sessions.
+* :mod:`repro_torch.obs.quality` — the paper's quality metrics
+  (:mod:`repro_torch.core.metrics`), re-exported so runtime and quality
+  numbers are read through one surface.
 """
 
 from repro_torch.obs.export import (  # noqa: F401

@@ -31,9 +31,11 @@ Every ingest is transactional (``repro_torch.core.txn`` undo log: any
 mid-ingest failure rolls the service back to the pre-submit state
 bit-for-bit).  The service is the reference's (``repro.stream``), held
 to it by :func:`repro_torch.stream.digest.state_digest` after every
-ingest.  The serving front-end, write-ahead log and sharding
-(``serving``, ``wal``, ``shard``) wait for ``ROADMAP.md`` Queue 1
-items 8 and 9.
+ingest.  Durability (:mod:`repro_torch.stream.wal` and the
+checkpointer: ``ServiceConfig.durability_dir``,
+``ResolveService.recover``) and the coalescing serving front-end
+(:mod:`repro_torch.stream.serving`) are the reference's too; sharding
+(``shard``) waits for ``ROADMAP.md`` Queue 1 item 9.
 """
 
 from repro_torch.stream.service import (
@@ -42,10 +44,20 @@ from repro_torch.stream.service import (
     ResolveSnapshot,
     ServiceConfig,
 )
+from repro_torch.stream.serving import (
+    AdmissionError,
+    IngestTicket,
+    ServingConfig,
+    ServingFrontend,
+)
 
 __all__ = [
+    "AdmissionError",
     "IngestReport",
+    "IngestTicket",
     "ResolveService",
     "ResolveSnapshot",
     "ServiceConfig",
+    "ServingConfig",
+    "ServingFrontend",
 ]

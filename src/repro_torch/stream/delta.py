@@ -150,6 +150,19 @@ class DeltaCover:
         self.cover: Cover | None = None
         self.packed: PackedCover | None = None
 
+    def __getstate__(self):
+        # Host state only: the device (and the index's device copies,
+        # dropped by its own __getstate__) is re-set by :meth:`place`,
+        # so a checkpoint written on one device restores on any other.
+        state = self.__dict__.copy()
+        state["device"] = None
+        return state
+
+    def place(self, device) -> None:
+        """Run the probe and the index's signatures on ``device``."""
+        self.device = resolve_device(device)
+        self.index.place(self.device)
+
     # -- growing state ----------------------------------------------------
 
     @property
@@ -358,11 +371,11 @@ class DeltaCover:
             if t is not None:
                 t.save_len(self.edge_chunks)
             self.edge_chunks.append(edges)
-        faults.maybe_fail("lsh")
+        faults.maybe_fail("lsh", names)
         with obs_span("ingest.lsh", batch=len(ids)):
             touched = self._probe(ids, names) if ids else set()
 
-        faults.maybe_fail("replay")
+        faults.maybe_fail("replay", names)
         with obs_span("ingest.replay", touched=len(touched)):
             canopies = self._canopies(touched)
         seeds = sorted(self._canopy_cache)
@@ -376,7 +389,7 @@ class DeltaCover:
         # boundary adjacency from new_edges itself (no per-ingest O(E)
         # Relations rebuild) and only reads entity *names*, so the live
         # name list is passed without the O(n) copy of entities().
-        faults.maybe_fail("cover_splice")
+        faults.maybe_fail("cover_splice", names)
         with obs_span("ingest.cover_splice"):
             cover = self.cover_delta.assemble(
                 canopies,

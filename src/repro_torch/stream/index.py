@@ -112,7 +112,26 @@ class MinHashLSHIndex:
         self._added_at: dict[int, int] = {}
         self._order: deque[int] = deque()
 
+    def __getstate__(self):
+        # The device copy of the hash table is derived state: pickling
+        # (the service's checkpoint) drops it and the device, so the
+        # state restores on any device (:meth:`place` re-places it).
+        state = self.__dict__.copy()
+        state["device"] = None
+        state["_table_t"] = None
+        return state
+
+    def place(self, device) -> None:
+        """Compute signatures on ``device`` from now on (the hash table
+        is uploaded there at the next call)."""
+        self.device = resolve_device(device)
+        self._table_t = None
+
     def signatures(self, names: list[str]) -> np.ndarray:
+        if self._table_t is None:
+            self._table_t = torch.as_tensor(
+                np.ascontiguousarray(self.table.T), device=self.device
+            )
         x = torch.as_tensor(
             shingle_presence(names, self.cfg.shingle_dim), device=self.device
         )

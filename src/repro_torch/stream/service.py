@@ -49,23 +49,37 @@ Thread-safety contract (per lock):
 round-parallel engine (:mod:`repro_torch.core.parallel`), whose device
 grounding cache persists across ingests and can be bounded
 (``gcache_capacity`` / ``gcache_hbm_budget``: an LRU over bins, cold
-bins re-ground on demand, bit for bit).
+bins re-ground on demand, bit for bit).  ``ServiceConfig.matcher``
+takes a registered family name (:mod:`repro_torch.core.matchers`).
 
-Not ported yet, and refused when asked for: string matcher families
-(``ROADMAP.md`` Queue 1 item 6), the write-ahead log, checkpoints and
-``recover`` (item 8), and sharded serving (item 9).
+Durability (``ServiceConfig.durability_dir``): every ingest is appended
+to a write-ahead log (:mod:`repro_torch.stream.wal`) before any state
+mutates, and every ``checkpoint_every`` ingests the logical state is
+checkpointed (:mod:`repro_torch.checkpoint.checkpointer`); the logical
+state is host-only, so a checkpoint written on the card restores on the
+CPU and the other way round.  :meth:`ResolveService.recover` rebuilds a
+service from the latest checkpoint plus the WAL tail.  The higher-traffic
+front-end (async ingest queue, micro-batch coalescing, admission
+control) lives in :mod:`repro_torch.stream.serving` and drives this
+service single-writer.
+
+Not ported yet, and refused when asked for: sharded serving
+(``ROADMAP.md`` Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import threading
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 
 from repro_torch import faults
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import pairs as pairlib, txn
 from repro_torch.core.closure import UnionFind
 from repro_torch.core.cover import DEFAULT_BINS
@@ -78,18 +92,11 @@ from repro_torch.obs import span as obs_span
 from repro_torch.stream.delta import DeltaCover
 from repro_torch.stream.engine import IncrementalEngine
 from repro_torch.stream.index import LSHConfig
+from repro_torch.stream.wal import WriteAheadLog
 
-DURABILITY_NOT_PORTED = (
-    "the write-ahead log and checkpointer are not ported yet: see "
-    "ROADMAP.md, Queue 1, item 8 (Serving and durability)"
-)
 SHARD_NOT_PORTED = (
     "sharded serving is not ported yet: see ROADMAP.md, Queue 1, item 9 "
     "(Sharded serving)"
-)
-FAMILIES_NOT_PORTED = (
-    "the matcher registry and its families are not ported yet: see "
-    "ROADMAP.md, Queue 1, item 6 (Matcher registry and families)"
 )
 
 
@@ -243,13 +250,13 @@ class ServiceConfig:
     """Typed configuration for :class:`ResolveService`, the reference's
     fields unchanged.
 
-    ``matcher`` accepts a matcher instance, or ``None`` for the paper's
-    collective MLN at ``weights``.  A registered family name (a string)
-    waits for the matcher registry (``ROADMAP.md`` Queue 1 item 6) and
-    raises; ``durability_dir`` raises too (item 8).  ``parallel`` runs
-    the round-parallel engine; ``gcache_capacity`` /
-    ``gcache_hbm_budget`` bound its grounding cache's resident bins /
-    bytes (the sequential engine has no cache and ignores them).
+    ``matcher`` accepts a registered family name (resolved through
+    :func:`repro_torch.core.matchers.get_matcher` on the service's
+    device), a matcher instance, or ``None`` for the paper's collective
+    MLN at ``weights``.  ``parallel`` runs the round-parallel engine;
+    ``gcache_capacity`` / ``gcache_hbm_budget`` bound its grounding
+    cache's resident bins / bytes (the sequential engine has no cache
+    and ignores them).
     """
 
     scheme: str = "smp"  # 'nomp' | 'smp' | 'mmp'
@@ -285,7 +292,9 @@ class ServiceConfig:
         if self.matcher is None:
             return MLNMatcher(self.weights, device=device)
         if isinstance(self.matcher, str):
-            raise NotImplementedError(FAMILIES_NOT_PORTED)
+            from repro_torch.core.matchers import get_matcher
+
+            return get_matcher(self.matcher, device=device)
         return self.matcher
 
 
@@ -304,9 +313,19 @@ class ResolveService:
         raises without a GPU; pass ``device="cpu"`` for the plain
         versions on the CPU.
 
-        ``shard`` and ``config.durability_dir`` raise
-        ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-        ports them."""
+        ``durability_dir`` turns on crash durability: every ingest is
+        appended to a write-ahead log (fsync'd unless ``wal_fsync`` is
+        off) *before* any in-memory state mutates, and — when
+        ``checkpoint_every`` > 0 — every that-many ingests the full
+        logical state is snapshotted through
+        :class:`repro_torch.checkpoint.checkpointer.Checkpointer` and
+        the WAL is rotated/GC'd.  :meth:`recover` rebuilds a service
+        from the latest snapshot plus the WAL tail; by stream/batch
+        schedule-invariance the recovered fixpoint is bit-for-bit the
+        uninterrupted one.
+
+        ``shard`` raises ``NotImplementedError`` naming the
+        ``ROADMAP.md`` item that ports it."""
         if deprecated_kwargs:
             if config is not None:
                 raise TypeError(
@@ -323,8 +342,6 @@ class ResolveService:
         cfg = config if config is not None else ServiceConfig()
         if shard is not None:
             raise NotImplementedError(SHARD_NOT_PORTED)
-        if cfg.durability_dir is not None:
-            raise NotImplementedError(DURABILITY_NOT_PORTED)
         self.config = cfg
         self.weights = cfg.weights
         self.scheme = cfg.scheme
@@ -384,6 +401,20 @@ class ResolveService:
             _members={},
         )
         self.reports: list[IngestReport] = []
+        # Durability plane (optional): WAL + checkpointer.  ``_seq`` is
+        # the last *assigned* ingest sequence number — aborted ingests
+        # consume their seq (an abort marker records the outcome), so
+        # replay never confuses a rolled-back batch with a committed one.
+        self.durability_dir = cfg.durability_dir
+        self.checkpoint_every = int(cfg.checkpoint_every)
+        self.wal: WriteAheadLog | None = None
+        self._ckpt: Checkpointer | None = None
+        self._seq = 0
+        self._replaying = False
+        if cfg.durability_dir is not None:
+            base = Path(cfg.durability_dir)
+            self.wal = WriteAheadLog(base / "wal", fsync=cfg.wal_fsync)
+            self._ckpt = Checkpointer(str(base / "ckpt"), keep=2)
 
     # -- ingest path ------------------------------------------------------
 
@@ -413,7 +444,9 @@ class ResolveService:
         — LSH probe, canopy replay, cover splice, grounding patch,
         fixpoint rounds, or the commit itself — the undo journal rolls
         every touched structure back and the service is bit-for-bit the
-        state it had before the call.
+        state it had before the call.  With durability on, the batch is
+        WAL-appended (fsync'd) *before* any state mutates, and an abort
+        marker records a rollback so recovery skips it.
         """
         t0 = time.perf_counter()
         if ids is None:
@@ -422,12 +455,32 @@ class ResolveService:
         else:
             ids = [int(i) for i in ids]
         names = list(names)
+        seq = None
+        if self.wal is not None and not self._replaying:
+            self._seq += 1
+            seq = self._seq
+            faults.maybe_fail("wal.append", names)
+            self.wal.append(seq, names, edges, ids)
         try:
             with txn.transaction():
-                return self._ingest_body(t0, names, edges, ids)
+                report = self._ingest_body(t0, names, edges, ids)
         except BaseException:
             get_registry().counter("ingest.aborts").inc()
+            if seq is not None:
+                try:
+                    self.wal.append_abort(seq)
+                except Exception:
+                    # Best-effort: without the marker, recovery replays
+                    # the batch and (deterministically) re-aborts it.
+                    pass
             raise
+        if (
+            seq is not None
+            and self.checkpoint_every
+            and seq % self.checkpoint_every == 0
+        ):
+            self._checkpoint(seq)
+        return report
 
     def _ingest_body(
         self,
@@ -446,7 +499,7 @@ class ResolveService:
             grounding_splice = 0
             gg = None
             if self.grounding is not None:
-                faults.maybe_fail("grounding_splice")
+                faults.maybe_fail("grounding_splice", names)
                 with obs_span("ingest.grounding_splice"):
                     gstats = self.grounding.apply_delta(
                         d.added_pairs, d.retracted_pairs, d.new_edges
@@ -454,7 +507,7 @@ class ResolveService:
                     grounding_visits = gstats.pairs_visited
                     gg = self.grounding.grounding()
                     grounding_splice = self.grounding.last_splice_rows
-            faults.maybe_fail("rounds")
+            faults.maybe_fail("rounds", names)
             stats = self.engine.advance(
                 d.packed, d.dirty, gg, retracted=d.retracted_pairs
             )
@@ -465,7 +518,7 @@ class ResolveService:
             # before or after this ingest, never mid-way, and never
             # wait on it.
             with self._lock, obs_span("ingest.commit"):
-                faults.maybe_fail("commit")
+                faults.maybe_fail("commit", names)
                 t = txn.active()
                 if t is not None:
                     # Attribute-level saves cover both the invalidation
@@ -527,11 +580,154 @@ class ResolveService:
                 )
         return report
 
+    # -- durability: checkpoint + WAL recovery ----------------------------
+
+    def _logical_state(self) -> dict:
+        """Everything needed to resume bit-for-bit, as one picklable
+        dict, with no tensor in it: the cover's device copies (the LSH
+        hash table) are dropped by its ``__getstate__``.  Excluded on
+        purpose: the matcher (rebuilt by the ctor from ``weights`` at
+        recover time), the device grounding cache (lazy; a cold
+        re-ground is bit-for-bit), and the obs registry (monotone
+        counters, not logical state)."""
+        eng = self.engine
+        return {
+            "seq": self._seq,
+            "delta": self.delta,
+            "grounding": self.grounding,
+            "engine": {
+                "m_plus": eng.m_plus,
+                "pool": eng.pool,
+                "total_evals": eng.total_evals,
+                "total_rounds": eng.total_rounds,
+                "total_dispatches": eng.total_dispatches,
+            },
+            "uf": self.uf,
+            "members": self._members,
+            "fixpoint": self._fixpoint,
+            "root_cache": self._root_cache,
+            "frozen": self._frozen,
+            "published": self._published,
+            "reports": self.reports,
+        }
+
+    def _load_logical_state(self, state: dict) -> None:
+        self._seq = int(state["seq"])
+        self.delta = state["delta"]
+        self.delta.place(self.device)  # device copies re-made lazily
+        self.grounding = state["grounding"]
+        eng = state["engine"]
+        self.engine.m_plus = eng["m_plus"]
+        self.engine.pool = eng["pool"]
+        self.engine.total_evals = eng["total_evals"]
+        self.engine.total_rounds = eng["total_rounds"]
+        self.engine.total_dispatches = eng["total_dispatches"]
+        self.engine.gcache = None  # re-grounds lazily, bit-for-bit
+        self.uf = state["uf"]
+        self._members = state["members"]
+        self._fixpoint = state["fixpoint"]
+        self._root_cache = state["root_cache"]
+        self._frozen = state["frozen"]
+        self._published = state["published"]
+        self.reports = state["reports"]
+
+    def _checkpoint(self, seq: int) -> None:
+        """Snapshot the logical state, then rotate + GC the WAL so
+        recovery replays only the post-checkpoint tail.  Ordering
+        matters: the checkpoint rename commits *before* any WAL segment
+        is dropped, so a crash anywhere in between only leaves extra
+        (idempotently skippable) WAL records behind."""
+        t0 = time.perf_counter()
+        blob = np.frombuffer(
+            pickle.dumps(self._logical_state(),
+                         protocol=pickle.HIGHEST_PROTOCOL),
+            dtype=np.uint8,
+        )
+        self._ckpt.save(seq, {"service": {"blob": blob}}, meta={"seq": seq})
+        self.wal.rotate(seq + 1)
+        self.wal.gc(seq)
+        reg = get_registry()
+        reg.counter("ckpt.saves").inc()
+        reg.counter("ckpt.bytes").inc(blob.nbytes)
+        reg.gauge("ckpt.last_seq").set(seq)
+        reg.histogram("ckpt.save_ms").observe((time.perf_counter() - t0) * 1e3)
+
     @classmethod
-    def recover(cls, durability_dir: str, config=None, **ctor_kwargs):
-        """Rebuild a service from its write-ahead log and checkpoints:
-        not ported yet (``ROADMAP.md`` Queue 1 item 8)."""
-        raise NotImplementedError(DURABILITY_NOT_PORTED)
+    def recover(
+        cls,
+        durability_dir: str,
+        config: "ServiceConfig | None" = None,
+        *,
+        device=None,
+        **ctor_kwargs,
+    ) -> "ResolveService":
+        """Rebuild a service from ``durability_dir`` on ``device``
+        (``None``: CUDA): restore the latest checkpoint (if any), then
+        replay the WAL tail — committed records past the checkpoint, in
+        sequence order, skipping aborted ones.  ``config`` (or the
+        deprecated ``ctor_kwargs``) must match the original construction
+        (scheme/weights/thresholds...); the matcher and device caches
+        are rebuilt, everything logical comes from disk, whichever
+        device wrote it.  The result is bit-for-bit the fixpoint of an
+        uninterrupted run over the same committed batches (schedule
+        invariance)."""
+        if config is not None:
+            shard = ctor_kwargs.pop("shard", None)
+            if ctor_kwargs:
+                raise TypeError(
+                    "pass either a ServiceConfig or keyword arguments, "
+                    f"not both (got {sorted(ctor_kwargs)})"
+                )
+            svc = cls(
+                dataclasses.replace(config, durability_dir=durability_dir),
+                shard=shard, device=device,
+            )
+        else:
+            svc = cls(durability_dir=durability_dir, device=device, **ctor_kwargs)
+        t0 = time.perf_counter()
+        ckpt_seq = 0
+        step = svc._ckpt.latest_step()
+        if step is not None:
+            flat, meta = svc._ckpt.restore_raw(step)
+            svc._load_logical_state(
+                pickle.loads(flat["service|blob"].tobytes())
+            )
+            ckpt_seq = int(meta.get("seq", step))
+        records, aborted = WriteAheadLog.scan(svc.wal.directory)
+        replayed = 0
+        svc._replaying = True
+        try:
+            for rec in records:
+                if rec.seq <= ckpt_seq or rec.seq in aborted:
+                    continue
+                try:
+                    svc.ingest(rec.names, rec.edges, ids=rec.ids)
+                except Exception:
+                    # The live run crashed before this batch's abort
+                    # marker hit disk; the replay re-derives the same
+                    # abort and rollback restores pre-batch state.
+                    pass
+                replayed += 1
+        finally:
+            svc._replaying = False
+        svc._seq = max(
+            [svc._seq, ckpt_seq]
+            + [r.seq for r in records]
+            + list(aborted)
+        )
+        reg = get_registry()
+        reg.counter("recover.replayed").inc(replayed)
+        reg.histogram("recover.wall_ms").observe(
+            (time.perf_counter() - t0) * 1e3
+        )
+        return svc
+
+    def close(self) -> None:
+        """Release durability file handles (safe to call twice)."""
+        if self.wal is not None:
+            self.wal.close()
+        if self._ckpt is not None:
+            self._ckpt.wait()
 
     # -- query path -------------------------------------------------------
 

@@ -21,7 +21,12 @@ sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-assert {{"repro_torch.core.parallel", "repro_torch.obs.export"}} <= set(names), names
+assert {{
+    "repro_torch.core.parallel", "repro_torch.obs.export", "repro_torch.obs.quality",
+    "repro_torch.core.matchers", "repro_torch.core.matchers.assignment",
+    "repro_torch.core.matchers.embedding", "repro_torch.stream.serving",
+    "repro_torch.stream.wal", "repro_torch.checkpoint.checkpointer",
+}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -53,6 +58,26 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
+# the modules of the matcher registry and of serving and durability
+NEW_MODULES = [
+    "src/repro_torch/core/matchers/__init__.py",
+    "src/repro_torch/core/matchers/assignment.py",
+    "src/repro_torch/core/matchers/embedding.py",
+    "src/repro_torch/stream/serving.py",
+    "src/repro_torch/stream/wal.py",
+    "src/repro_torch/checkpoint/__init__.py",
+    "src/repro_torch/checkpoint/checkpointer.py",
+    "src/repro_torch/obs/quality.py",
+]
+
+
+@pytest.mark.parametrize("path", NEW_MODULES)
+def test_new_modules_never_name_the_reference(path):
+    """Not even in a docstring: these modules name no ``repro.`` module."""
+    src = (ROOT / path).read_text()
+    assert not re.findall(r"\brepro\.", src), path
+
+
 def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     """device=None means CUDA: without a GPU the entry points raise, never fall back."""
     from repro_torch.core import pipeline
@@ -75,6 +100,19 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         build_cover(ds.entities, ds.relations)
     assert MLNMatcher(device="cpu").device.type == "cpu"
     assert RulesMatcher(device="cpu").device.type == "cpu"
+
+    from repro_torch.core.matchers import get_matcher, list_matchers
+    from repro_torch.core.matchers.assignment import AssignmentMatcher
+    from repro_torch.core.matchers.embedding import EmbeddingMatcher
+
+    for name in list_matchers():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_matcher(name)
+        assert get_matcher(name, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AssignmentMatcher()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbeddingMatcher(encoder="lm")
 
     from repro_torch.configs.base import smoke_config
     from repro_torch.launch import serve
@@ -159,18 +197,46 @@ def test_resolve_service_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     assert ResolveService(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["durability_dir", "shard", "string_matcher", "recover"])
+@pytest.mark.parametrize("what", ["shard", "recover_shard", "checkpoint_shardings"])
 def test_unported_service_options_raise(what, tmp_path):
     """Each option whose engine is not ported yet raises and names its ROADMAP item."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.stream import ResolveService, ServiceConfig
 
     make = {
-        "durability_dir": lambda: ResolveService(
-            ServiceConfig(durability_dir=str(tmp_path)), device="cpu"),
         "shard": lambda: ResolveService(shard=object(), device="cpu"),
-        "string_matcher": lambda: ResolveService(
-            ServiceConfig(matcher="hungarian"), device="cpu"),
-        "recover": lambda: ResolveService.recover(str(tmp_path)),
+        "recover_shard": lambda: ResolveService.recover(
+            str(tmp_path), ServiceConfig(durability_dir=str(tmp_path)), shard=object(),
+            device="cpu"),
+        "checkpoint_shardings": lambda: Checkpointer(str(tmp_path)).restore(
+            0, {}, shardings={}),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
+
+
+def test_durable_service_and_recovery_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """Durability, recovery and serving follow the same device rule."""
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.stream import ResolveService, ServiceConfig, ServingFrontend
+
+    cfg = ServiceConfig(durability_dir=str(tmp_path / "d"), checkpoint_every=1)
+    svc = ResolveService(cfg, device="cpu")
+    with ServingFrontend(svc) as fe:
+        fe.submit(["ada lovelace", "a. lovelace"]).wait(60)
+    svc.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResolveService(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResolveService.recover(str(tmp_path / "d"), cfg)
+    rec = ResolveService.recover(str(tmp_path / "d"), cfg, device="cpu")
+    assert rec.delta.n_entities == 2 and rec._seq == 1
+    rec.close()
+    ck = Checkpointer(str(tmp_path / "c"))
+    ck.save(1, {"s": {"w": np.zeros(2)}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ck.restore(1, {"s": {"w": np.zeros(2)}})
+    assert ck.restore(1, {"s": {"w": np.zeros(2)}}, device="cpu")["s"]["w"].device.type == "cpu"

@@ -167,8 +167,9 @@ def test_refusals(state):
     _, _, ppk, pgg = state
     with pytest.raises(NotImplementedError, match="item 9"):
         parallel.run_parallel(ppk, MLNMatcher(device="cpu"), pgg, mesh=object(), device="cpu")
-    with pytest.raises(TypeError, match="item 6"):
-        parallel._ground_bin_fn("embed", None, torch.device("cpu"))
+    with pytest.raises(TypeError, match="no grounding builder registered for kind 'nowhere'"):
+        parallel._ground_bin_fn("nowhere", None, torch.device("cpu"))
+    assert "embed" in parallel._GROUND_BUILDERS  # the embedding family's, beside mln and rules
     with pytest.raises(TypeError, match="parallel backend"):
         parallel.run_parallel(ppk, object(), pgg, device="cpu")
     with pytest.raises(AssertionError):  # no score(): not a Type-II matcher
