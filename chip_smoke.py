@@ -69,7 +69,26 @@
    default ``ServingConfig()``, one request a paper, for throughput.  Prints
    requests and entities a second, the queue wait p50/p99, the WAL bytes,
    the checkpoint size and save time, ``recover.replayed`` and its wall.
-9. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+9. Shard (``shard``): sharded serving (``repro_torch.stream.shard``), its
+   ranks this script again as subprocesses (``--shard-worker``) with
+   ``REPRO_SHARD_COORD`` / ``_N`` / ``_ID`` set, on one ``torch.distributed``
+   group each (a file store): several ranks on the one card, so the backend
+   rule gives gloo (NCCL refuses two ranks on a GPU).  (a) 2 ranks, each a
+   ``ShardCoordinator`` with ``ServiceConfig(parallel=True)`` over the 29
+   batches, mmp then smp on one group: both ranks' matches, evals,
+   clusters, O(dirty) counters, re-ground rows and digests must equal
+   ``EXPECTED_STREAM_PARALLEL``, ``digests_agree()`` must hold, each rank
+   must launch ``minhash`` 29 times and ``icm_sweep`` and ``ngram_sim``, and
+   evaluate some but not all of the rows.  (b) 4 ranks run ``run_parallel``
+   on ``make_lattice_cover(depth=6, width=4)``, smp and mmp: each digest
+   equal to a one-rank run here.  (c) ``python -m repro_torch.launch.serve
+   --em`` at its defaults as 2 ranks and as one: equal digests, exit 0.
+   Each rank sets its counters to 0 before a run and reads them after.
+   Prints, per rank and scheme, the wall, ingest p50/p99, the collectives
+   (bitset reductions, row gathers, probe unions: calls and ms),
+   ``icm_sweep`` launches and rows against the one-rank stream of phase
+   ``parallel``, and the backend.
+10. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
    layers, weights drawn on the CPU with ``init_params``, a prefill of 4
    prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
    CPU's tokens; the largest logit difference over the largest logit must
@@ -84,9 +103,9 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-10. Profile: the first 100 MMP evaluations once more under
+11. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-11. The card's name and power limit, the kernel list as one JSON line, and
+12. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -100,6 +119,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -239,6 +259,14 @@ LM_EMBED_TOL = 2e-3
 # and its crash worker dies at this hit of the ``rounds`` fault site
 SERVING_CKPT_EVERY = 8
 SERVING_CRASH_HIT = 12
+# the shard phase: ranks on the card for the 29-batch stream, and for the
+# lattice; each rank's collectives time out after this many seconds
+SHARD_RANKS = 2
+SHARD_LATTICE_RANKS = 4
+SHARD_TIMEOUT_S = 300
+# the parallel phase's one-rank streams, which the shard phase's ranks
+# are set beside: scheme -> wall, ingest p50/p99, evals, launches, icm rows
+UNSHARDED_STREAM: dict = {}
 STREAM_SPANS = ("ingest.lsh", "ingest.replay", "ingest.cover_splice",
                 "ingest.grounding_splice", "ingest.rounds", "ingest.commit")
 
@@ -286,6 +314,7 @@ def _zero_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
     _wrappers()["flash_attn"].wgmma_launches = 0
+    _wrappers()["icm_sweep"].rows = 0
 
 
 def _read_counts() -> dict:
@@ -724,10 +753,11 @@ def stream_run(dev, scheme: str, batches, **config) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    icm_rows = _wrappers()["icm_sweep"].rows
     spans = obs.get_registry().snapshot()["spans"]
     ingest_s = np.array([r.wall_time_s for r in reports])
     return dict(
-        service=svc, wall=wall, launches=launches,
+        service=svc, wall=wall, launches=launches, icm_rows=icm_rows,
         p50=float(np.percentile(ingest_s, 50)), p99=float(np.percentile(ingest_s, 99)),
         spans={n: spans.get(n, {}).get("total_s", 0.0) for n in STREAM_SPANS},
         **service_summary(svc),
@@ -956,13 +986,15 @@ def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
         + (f"{prof['busy']:.3f} s ({100 * prof['busy'] / prof['wall']:.1f}%)" if prof["ops"]
            else "not measured (the profiler saw no device activity)")
         + f", {prof['ops']} device ops, {prof['d2h']} of them device-to-host copies "
-        "(the sequential driver's share: phase 10, `[profile]`)")
+        "(the sequential driver's share: phase 11, `[profile]`)")
 
     batches = stream_schedules(ds)[29]
     for scheme, want in EXPECTED_STREAM_PARALLEL.items():
         run = stream_run(dev, scheme, batches, parallel=True)
         got = {k: run[k] for k in want}
         require(got == want, f"parallel stream {scheme}: got {got}, expected {want}")
+        UNSHARDED_STREAM[scheme] = {k: run[k] for k in ("wall", "p50", "p99", "evals",
+                                                        "launches", "icm_rows")}
         lc = run["launches"]
         count(lc)
         require(lc["minhash"] == len(batches),
@@ -1305,6 +1337,213 @@ def phase_serving(dev) -> dict:
     return total
 
 
+def _rank_result(tag: str, **fields) -> None:
+    """One result line of a shard-phase rank, read back by the parent."""
+    print(f"SHARD_RESULT {tag} " + json.dumps(fields), flush=True)
+
+
+def _mesh_stats(mesh) -> dict:
+    """The mesh's collectives as kind -> [calls, ms]."""
+    return {k: [n, round(s * 1e3, 3)] for k, (n, s) in mesh.stats.items()}
+
+
+def shard_worker(job: str, device: str | None) -> int:
+    """A rank of the shard phase, on the group that ``REPRO_SHARD_*`` names.
+
+    ``stream``: a ``ShardCoordinator`` with ``ServiceConfig(parallel=True)``
+    over the 29 batches, mmp then smp on the one group; ``lattice``:
+    ``run_parallel`` on ``make_lattice_cover(depth=6, width=4)``, smp then
+    mmp, over the rank mesh.  The launch counters and the mesh's
+    collectives are set to 0 before each run and read after it; prints one
+    ``SHARD_RESULT`` line a run.
+    """
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.mln import PAPER_LEARNED
+    from repro_torch.stream import ServiceConfig
+    from repro_torch.stream.shard import ShardContext, ShardCoordinator
+
+    ctx = ShardContext.create(device=device)
+    mesh = ctx.mesh
+    who = dict(rank=ctx.shard_id, ranks=ctx.n_shards, backend=mesh.backend,
+               device=str(mesh.device))
+    if job == "lattice":
+        from repro_torch.core.global_grounding import build_global_grounding
+        from repro_torch.core.mln import MLNMatcher
+        from repro_torch.core.parallel import run_parallel
+        from repro_torch.data.synthetic import make_lattice_cover
+        from repro_torch.stream.digest import match_digest
+
+        packed, relations, weights = make_lattice_cover(depth=6, width=4)
+        for scheme in ("smp", "mmp"):
+            gg = (build_global_grounding(packed.pair_levels, relations, weights)
+                  if scheme == "mmp" else None)
+            _zero_counts()
+            mesh.reset_stats()
+            res = run_parallel(packed, MLNMatcher(weights, device=mesh.device), gg,
+                               scheme=scheme, mesh=mesh)
+            _rank_result("lattice", scheme=scheme, digest=match_digest(res.matches),
+                         evals=res.neighborhood_evals, rows_evaluated=mesh.rows_evaluated,
+                         launches=_read_counts(), collectives=_mesh_stats(mesh), **who)
+        return 0
+
+    from repro_torch.data.synthetic import SynthConfig, make_dataset
+
+    batches = stream_schedules(make_dataset(SynthConfig.hepth(scale=1.0, seed=7)))[29]
+    for scheme in ("mmp", "smp"):
+        coord = ShardCoordinator(ctx, config=ServiceConfig(scheme=scheme, weights=PAPER_LEARNED,
+                                                           parallel=True))
+        obs.reset()
+        _zero_counts()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        reports = [coord.ingest(b.names, b.edges, ids=b.ids) for b in batches]
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        icm_rows = _wrappers()["icm_sweep"].rows
+        stats = _mesh_stats(mesh)
+        ingest_s = np.array([r.wall_time_s for r in reports])
+        summary = service_summary(coord.service)
+        _rank_result("stream", scheme=scheme, wall=wall,
+                     p50=float(np.percentile(ingest_s, 50)),
+                     p99=float(np.percentile(ingest_s, 99)), launches=launches,
+                     icm_rows=icm_rows, rows_evaluated=mesh.rows_evaluated,
+                     collectives=stats, agree=coord.digests_agree(), **summary, **who)
+    return 0
+
+
+def _spawn_ranks(n: int, argv: list[str], store: Path, timeout: float) -> list[str]:
+    """``n`` ranks of ``python argv`` on one group (a file store at
+    ``store``), started together; each rank's stdout.  A rank that fails
+    fails the phase, and every rank still running is killed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "REPRO_SHARD_N": str(n),
+           "REPRO_SHARD_COORD": store.as_uri(), "REPRO_SHARD_TIMEOUT_S": str(SHARD_TIMEOUT_S)}
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**env, "REPRO_SHARD_ID": str(i)}) for i in range(n)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            require(p.returncode == 0, f"shard rank {i}/{n} ({' '.join(argv)}) exited "
+                    f"{p.returncode}:\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _rank_results(out: str, tag: str) -> list[dict]:
+    return [json.loads(ln.split(" ", 2)[2]) for ln in out.splitlines()
+            if ln.startswith(f"SHARD_RESULT {tag} ")]
+
+
+def _em_digest(out: str) -> str:
+    """The digest of ``launch.serve --em``'s summary line."""
+    line = out.strip().splitlines()[-1]
+    require("(replicas agree)" in line, f"serve --em: {line}")
+    return line.split("digest ", 1)[1].split()[0]
+
+
+def phase_shard(dev) -> dict:
+    """Sharded serving, ranks on the card (see the module docstring);
+    returns the launch counts summed over the ranks' runs."""
+    import tempfile
+
+    from repro_torch.core.global_grounding import build_global_grounding
+    from repro_torch.core.mln import MLNMatcher
+    from repro_torch.core.parallel import run_parallel
+    from repro_torch.data.synthetic import make_lattice_cover
+    from repro_torch.stream.digest import match_digest
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        # (a) the 29-batch stream on SHARD_RANKS ranks sharing the card
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(SHARD_RANKS, ["chip_smoke.py", "--shard-worker", "stream", *dev_arg],
+                            tmp / "stream", 900)
+        log(f"[shard] stream: {SHARD_RANKS} ranks, mmp then smp on one group, "
+            f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+        for out in outs:
+            runs = _rank_results(out, "stream")
+            require([r["scheme"] for r in runs] == ["mmp", "smp"], f"shard stream: {runs}")
+            for r in runs:
+                want = EXPECTED_STREAM_PARALLEL[r["scheme"]]
+                got = {k: r[k] for k in want}
+                tag = f"shard stream {r['scheme']}, rank {r['rank']}/{r['ranks']}"
+                require(got == want, f"{tag}: got {got}, expected {want}")
+                require(r["agree"], f"{tag}: the replicas' digests differ")
+                lc = r["launches"]
+                require(lc["minhash"] == 29, f"{tag}: minhash launched {lc['minhash']} times")
+                for name in ("icm_sweep", "ngram_sim"):
+                    require(lc[name] > 0, f"{tag}: {name} was never launched")
+                require(0 < r["rows_evaluated"] < r["evals"],
+                        f"{tag}: evaluated {r['rows_evaluated']} of {r['evals']} rows")
+                _count_into(total, lc)
+                one = UNSHARDED_STREAM.get(r["scheme"])
+                vs = (f" (one rank, phase parallel: wall {one['wall']:.2f} s, p50 "
+                      f"{one['p50'] * 1e3:.1f} ms, p99 {one['p99'] * 1e3:.1f} ms, icm_sweep "
+                      f"{one['launches']['icm_sweep']} launches over {one['icm_rows']} rows, "
+                      f"{one['evals']} rows evaluated)") if one else ""
+                log(f"[shard] {tag}, backend {r['backend']} on {r['device']}: wall "
+                    f"{r['wall']:.2f} s, ingest p50 {r['p50'] * 1e3:.1f} ms p99 "
+                    f"{r['p99'] * 1e3:.1f} ms; collectives (calls, ms): {r['collectives']}; "
+                    f"icm_sweep {lc['icm_sweep']} launches over {r['icm_rows']} rows, "
+                    f"{r['rows_evaluated']} of {r['evals']} rows evaluated here{vs}; "
+                    f"launches {lc}; state digest {r['state_digest'][:16]}...")
+
+        # (b) the lattice on SHARD_LATTICE_RANKS ranks against one rank here
+        outs = _spawn_ranks(SHARD_LATTICE_RANKS,
+                            ["chip_smoke.py", "--shard-worker", "lattice", *dev_arg],
+                            tmp / "lattice", 600)
+        packed, relations, weights = make_lattice_cover(depth=6, width=4)
+        want = {}
+        for scheme in ("smp", "mmp"):
+            gg = (build_global_grounding(packed.pair_levels, relations, weights)
+                  if scheme == "mmp" else None)
+            res = run_parallel(packed, MLNMatcher(weights, device=dev), gg, scheme=scheme,
+                               device=dev)
+            want[scheme] = (match_digest(res.matches), res.neighborhood_evals)
+        for out in outs:
+            for r in _rank_results(out, "lattice"):
+                tag = f"shard lattice {r['scheme']}, rank {r['rank']}/{r['ranks']}"
+                require((r["digest"], r["evals"]) == want[r["scheme"]],
+                        f"{tag}: {r['digest']}, {r['evals']} evals; one rank "
+                        f"{want[r['scheme']]}")
+                require(r["launches"]["icm_sweep"] > 0, f"{tag}: icm_sweep was never launched")
+                _count_into(total, r["launches"])
+                log(f"[shard] {tag}, backend {r['backend']}: digest equals one rank's; "
+                    f"{r['rows_evaluated']} of {r['evals']} rows evaluated here; collectives "
+                    f"(calls, ms) {r['collectives']}; launches {r['launches']}")
+
+        # (c) launch.serve --em at its defaults, as SHARD_RANKS ranks and as one
+        em = ["-m", "repro_torch.launch.serve", "--em", *(["--device", str(dev)]
+                                                         if dev.type != "cuda" else [])]
+        t0 = time.perf_counter()
+        many = [_em_digest(o) for o in _spawn_ranks(SHARD_RANKS, em, tmp / "em", 600)]
+        t_many = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = subprocess.run([sys.executable, *em], cwd=ROOT, capture_output=True, text=True,
+                               timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        require(alone.returncode == 0, f"serve --em alone exited {alone.returncode}:\n"
+                f"{alone.stderr[-3000:]}")
+        one = _em_digest(alone.stdout)
+        require(many == [one] * SHARD_RANKS, f"serve --em: ranks {many}, one rank {one}")
+        log(f"[shard] serve --em: {SHARD_RANKS} ranks {t_many:.1f} s, one "
+            f"{time.perf_counter() - t0:.1f} s (spawn to exit), digest {one} on every rank")
+    log(f"[shard] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def _sync(dev) -> None:
     import torch
 
@@ -1542,9 +1781,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="the serving phase's worker: serve into DIR and die at the armed "
                          "fault (exit 117); prints no result line")
     ap.add_argument("--crash-device", default="cuda:0", help="the crash worker's device")
+    ap.add_argument("--shard-worker", choices=["stream", "lattice"],
+                    help="a rank of the shard phase (REPRO_SHARD_* set by the phase); "
+                         "prints no result line")
+    ap.add_argument("--shard-device", default=None,
+                    help="a shard rank's device (default: the backend rule's card)")
     args = ap.parse_args(argv)
     if args.crash_worker:
         return crash_worker(args.crash_worker, args.crash_device)
+    if args.shard_worker:
+        return shard_worker(args.shard_worker, args.shard_device)
     try:
         import torch
     except ImportError:
@@ -1572,6 +1818,7 @@ def main(argv: list[str] | None = None) -> int:
     stream_launches = phase_stream(dev, resolved)
     matchers_launches = phase_matchers(dev, resolved)
     serving_launches = phase_serving(dev)
+    shard_launches = phase_shard(dev)
     lm_launches = phase_lm(dev)
     phase_profile(dev, resolved["mmp"])
 
@@ -1592,12 +1839,13 @@ def main(argv: list[str] | None = None) -> int:
             replaces=meta["replaces"],
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
                       + stream_launches[name] + matchers_launches[name]
-                      + serving_launches[name] + lm_launches[name]),
+                      + serving_launches[name] + shard_launches[name] + lm_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
                               "matchers": matchers_launches[name],
-                              "serving": serving_launches[name], "lm": lm_launches[name]},
+                              "serving": serving_launches[name],
+                              "shard": shard_launches[name], "lm": lm_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

@@ -19,8 +19,11 @@ State trees are nested dicts, lists and tuples with tensor or array
 leaves (``None`` is an empty subtree).  A leaf's key is its path joined
 by ``/`` — dict keys in sorted order, sequence indices — the key strings
 of the JAX reference's pytree flattening, so the two packages name the
-same leaves alike.  Re-placing a restored tree onto a device mesh waits
-for sharded serving (``ROADMAP.md`` Queue 1 item 9).
+same leaves alike.  A restored tree can be re-placed onto a mesh of
+ranks (:class:`repro_torch.launch.mesh.EMMesh`) under DTensor placements:
+``Replicate()`` puts the whole array on the rank's device, ``Shard(d)``
+this rank's slice along dimension ``d`` — the counterparts of the
+reference's ``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -35,12 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults
-from repro_torch.kernels.common import resolve_device
-
-SHARDINGS_NOT_PORTED = (
-    "restoring onto a device mesh waits for sharded serving: see "
-    "ROADMAP.md, Queue 1, item 9 (Sharded serving)"
-)
+from repro_torch.kernels.common import put_replicated, put_sharded, resolve_device
 
 
 def _leaves_with_path(tree, path=()):
@@ -91,6 +89,28 @@ def _unflatten_into(template, flat: dict[str, np.ndarray], place, path=()):
         raise ValueError(f"checkpoint shape mismatch at {key}: "
                          f"{arr.shape} vs {expect}")
     return place(arr)
+
+
+def _place(tree, placements, mesh):
+    """``tree``'s host arrays placed over ``mesh`` under ``placements``: a
+    tree of the same shape, or one placement for every leaf below."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _place(v, placements[k] if isinstance(placements, dict) else placements,
+                          mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        seq = isinstance(placements, (list, tuple))
+        out = [_place(v, placements[i] if seq else placements, mesh)
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else type(tree)(out)
+    from torch.distributed.tensor import Replicate, Shard
+
+    if isinstance(placements, Replicate):
+        return put_replicated(tree, mesh)
+    if isinstance(placements, Shard):
+        return put_sharded(tree, mesh, placements.dim)
+    raise ValueError(f"unsupported placement {placements!r}: Replicate() or Shard(dim)")
 
 
 class Checkpointer:
@@ -184,13 +204,22 @@ class Checkpointer:
         which raises without a GPU; pass ``device="cpu"`` for the CPU).
 
         ``templates`` maps name -> tree of tensors/arrays (anything with
-        a ``shape``) to validate against.  ``mesh`` / ``shardings``
-        (re-placement onto a device mesh) wait for sharded serving and
-        raise ``NotImplementedError``.
+        a ``shape``) to validate against.  ``shardings`` (optional) maps
+        name -> a tree of DTensor placements (or one placement for the
+        whole tree) for elastic re-placement over ``mesh`` (an
+        :class:`~repro_torch.launch.mesh.EMMesh`; ``None``: the one-rank
+        mesh on ``device``): ``Replicate()`` gives each rank the whole
+        array, ``Shard(d)`` its slice of dimension ``d``.
         """
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(SHARDINGS_NOT_PORTED)
-        dev = resolve_device(device)
+        from repro_torch.launch.mesh import EMMesh
+
+        if mesh is None:
+            mesh = EMMesh.local(device)
+        elif device is not None:
+            d = resolve_device(device)
+            if d.type != mesh.device.type or d.index not in (None, mesh.device.index):
+                raise ValueError(f"restore on {d}, but the mesh's rank is on {mesh.device}")
+        dev = mesh.device
         path = os.path.join(self.dir, f"step_{step:09d}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat_all = {k: z[k] for k in z.files}
@@ -201,7 +230,11 @@ class Checkpointer:
                 for k, v in flat_all.items()
                 if k.startswith(name + "|")
             }
-            out[name] = _unflatten_into(
-                template, flat, lambda a: torch.as_tensor(a, device=dev)
-            )
+            if shardings is not None and name in shardings:
+                tree = _unflatten_into(template, flat, lambda a: a)
+                out[name] = _place(tree, shardings[name], mesh)
+            else:
+                out[name] = _unflatten_into(
+                    template, flat, lambda a: torch.as_tensor(a, device=dev)
+                )
         return out

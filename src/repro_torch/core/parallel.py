@@ -53,11 +53,22 @@ fixpoint is schedule-invariant.  ``fused=False`` keeps the legacy
 per-round host loop (one matcher call a bin a round, re-grounding each
 time) as the differential baseline.
 
-One device, no mesh: the reference's ``shard_map``/``psum``/
-``all_gather`` over the mesh's data axes reduce to the identity here.
-A mesh waits for sharded serving (``ROADMAP.md`` Queue 1 item 9), and
-``build_round_fn``/``build_bin_round_fn``, which the reference keeps
-for its multi-pod dry-run, wait for the TPU tooling (item 11).
+**Mesh** (``mesh=``, a :class:`repro_torch.launch.mesh.EMMesh`): the
+rank count pads every bin's rows to a multiple of it, and each rank
+evaluates only the active rows of its slice of each bin.  The loops are
+driven by the host, so the collectives sit where the reference's
+``psum``s are: the round's hit bitset is OR-reduced over the ranks once
+a round (fused loop, full round, legacy round), after which the bitset
+— and so the changed slots, the next active sets and their counts — is
+the same on every rank with no second collective; ``evals`` and
+``history`` count the rows of every rank.  The per-row labels the host
+reads for MMP's messages are all-gathered back to whole bins, padded to
+equal slices.  The grounding cache and the promoter stay replicated:
+every rank grounds whole bins and takes its slice, so the cache's
+counters equal the one-rank run's.  A one-rank mesh (``mesh=None``) has
+no collective.  ``build_round_fn``/``build_bin_round_fn``, which the
+reference keeps for its multi-pod dry-run, wait for the TPU tooling
+(``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -90,14 +101,22 @@ from repro_torch.core.mln import (
 )
 from repro_torch.core.rules import rules_fixpoint_batch
 from repro_torch.core.types import MatchStore, NeighborhoodBatch
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import (
+    host_array,
+    mesh_spans_processes,
+    put_replicated,
+    resolve_device,
+)
+from repro_torch.launch.mesh import EMMesh, em_service_mesh
 from repro_torch.obs import profiler_session, record_transfer
 from repro_torch.obs import span as obs_span
 
-MESH_NOT_PORTED = (
-    "run_parallel runs on one device; a mesh waits for sharded serving: "
-    "see ROADMAP.md, Queue 1, item 9 (Sharded serving)"
-)
+
+def make_em_mesh(n_shards: int | None = None, axis: str = "data", device=None) -> EMMesh:
+    """The ``(n,)`` mesh over every rank of this process's group (joined
+    by ``launch.mesh.init_em_distributed``), or the one-rank mesh on
+    ``device`` when it joined none; ``n_shards`` must be the rank count."""
+    return em_service_mesh(n_shards, device, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +396,7 @@ class GroundingCache:
                 + bt.pair_mask[r].tobytes(),
                 digest_size=16,
             ).digest()
-            for r in range(bt.entity_mask.shape[0])
+            for r in range(bt.n_rows)
         )
 
     def _ground_rows(self, fn, bt: _BinTensors, rows: np.ndarray):
@@ -474,11 +493,18 @@ class _BinTensors:
     pair_mask: np.ndarray
     uidx: np.ndarray  # (B, P) int32 universe index, Np where invalid
     pair_gid: np.ndarray
+    n_rows: int  # the bin's own rows; any after them pad B to the rank count
 
 
-def _prepare_bins(packed: PackedCover, universe: np.ndarray) -> dict[int, _BinTensors]:
+def _prepare_bins(
+    packed: PackedCover, universe: np.ndarray, pad_mult: int = 1
+) -> dict[int, _BinTensors]:
     """Stage per-bin arrays with each slot's index into the universe
-    (``Np`` for a slot that is no candidate pair)."""
+    (``Np`` for a slot that is no candidate pair).  ``pad_mult`` pads
+    the batch axis to a multiple of the mesh's rank count; padding rows
+    are inert (``pair_mask`` False, ``uidx`` == Np, ``pair_gid`` == -1),
+    are never active, and are never ground: the grounding cache sees the
+    first ``n_rows`` rows only."""
     out = {}
     Np = len(universe)
     for k, nb in packed.bins.items():
@@ -487,14 +513,25 @@ def _prepare_bins(packed: PackedCover, universe: np.ndarray) -> dict[int, _BinTe
         ok = (nb.pair_gid >= 0) & (
             universe[idx] == nb.pair_gid if Np else np.zeros_like(nb.pair_mask)
         )
+        uidx = np.where(ok, idx, Np).astype(np.int32)
+        b = nb.entity_mask.shape[0]
+        target = max(-(-b // pad_mult) * pad_mult, pad_mult)
+
+        def _pad(a, fill):
+            if target == b:
+                return a
+            extra = np.full((target - b,) + a.shape[1:], fill, dtype=a.dtype)
+            return np.concatenate([a, extra], axis=0)
+
         bt = _BinTensors(
-            entity_ids=nb.entity_ids,
-            entity_mask=nb.entity_mask,
-            coauthor=nb.coauthor,
-            sim_level=nb.sim_level.astype(np.int8),
-            pair_mask=nb.pair_mask,
-            uidx=np.where(ok, idx, Np).astype(np.int32),
-            pair_gid=nb.pair_gid,
+            entity_ids=_pad(nb.entity_ids, -1),
+            entity_mask=_pad(nb.entity_mask, False),
+            coauthor=_pad(nb.coauthor, False),
+            sim_level=_pad(nb.sim_level.astype(np.int8), 0),
+            pair_mask=_pad(nb.pair_mask, False),
+            uidx=_pad(uidx, Np),
+            pair_gid=_pad(nb.pair_gid, -1),
+            n_rows=b,
         )
         record_transfer(
             "prepare", bt.entity_mask, bt.coauthor, bt.sim_level,
@@ -535,11 +572,13 @@ class FusedSpec:
 class _DeviceBin:
     """One bin's tensors for the round loops, on the run's device."""
 
-    g: tuple  # the grounding 4-tuple, valid last
+    g: tuple  # the grounding 4-tuple of the bin's own rows, valid last
     uidx: torch.Tensor  # (B, P) int64, Np where invalid
     safe: torch.Tensor  # uidx clamped into the universe (a gather index)
     inuniv: torch.Tensor  # (B, P) bool: slot is a candidate pair
     active: torch.Tensor  # (B,) bool
+    lo: int  # this rank's rows: [lo, hi)
+    hi: int
 
 
 def _eval_bin_x(kind: str, g, ev_pos, ev_neg):
@@ -557,52 +596,61 @@ def _eval_bin_x(kind: str, g, ev_pos, ev_neg):
     return x
 
 
-def _active_rows(active: torch.Tensor, n: int) -> torch.Tensor | None:
-    """The ``n`` rows set in ``active``, ascending (None: every row),
-    found without reading ``active`` back to the host."""
+def _active_rows(active: torch.Tensor, n: int, lo: int = 0,
+                 hi: int | None = None) -> torch.Tensor | None:
+    """The ``n`` rows set in ``active[lo:hi]``, ascending (None: every row
+    of the bin), found without reading ``active`` back to the host."""
     if n == active.shape[0]:
         return None
-    order = torch.sort((~active).to(torch.int8), stable=True).indices
-    return order[:n]
+    order = torch.sort((~active[lo:hi]).to(torch.int8), stable=True).indices
+    return order[:n] + lo
 
 
 def _fused_rounds(spec: FusedSpec, bins: list[_DeviceBin], m_bits: torch.Tensor,
-                  budget: int):
+                  budget: int, mesh: EMMesh):
     """Multi-round closure: rounds of every bin's active rows until no
     row is active or ``budget`` rounds ran.
 
     The match bitset, the per-bin active sets and their counts stay on
     the device; each round reads the per-bin active counts back once
-    (the loop condition) and evaluates only the active rows.  Returns
+    (the loop condition: the whole bins' counts, and this rank's
+    slices') and evaluates this rank's active rows.  The hit bitset is
+    OR-reduced over the ranks once a round; every rank then holds the
+    same bits, so the next active sets need no collective.  Returns
     ``(bits, rounds, evals, history)``.
     """
     Np = spec.universe_size
     bits = m_bits
     actives = [b.active for b in bins]
-    counts = torch.stack([a.sum() for a in actives])
+    split = mesh_spans_processes(mesh)
     rounds = 0
     evals = 0
     history: list[int] = []
     while rounds < budget:
-        per_bin = counts.tolist()
+        sums = [a.sum() for a in actives]
+        if split:
+            sums += [a[b.lo:b.hi].sum() for a, b in zip(actives, bins)]
+        counts = torch.stack(sums).tolist()
+        per_bin = counts[: len(bins)]
+        mine = counts[len(bins):] if split else per_bin
         n_active = sum(per_bin)
         if not n_active:
             break
         history.append(n_active)
         hit = torch.zeros(Np, dtype=torch.bool, device=bits.device)
-        for kind, b, act, n in zip(spec.kinds, bins, actives, per_bin):
+        for kind, b, act, n in zip(spec.kinds, bins, actives, mine):
             if not n:
                 continue
-            rows = _active_rows(act, n)
+            mesh.rows_evaluated += n
+            rows = _active_rows(act, n, b.lo, b.hi)
             inuniv = _take(b.inuniv, rows)
             ev_pos = bits[_take(b.safe, rows)] & inuniv
             x = _eval_bin_x(kind, tuple(_take(a, rows) for a in b.g), ev_pos,
                             torch.zeros_like(ev_pos))
             hit |= _scatter_bits(_take(b.uidx, rows), x & inuniv, Np)
-        new_bits = hit | bits
+        new_bits = mesh.reduce_bits(hit) | bits
         changed = new_bits & ~bits
         actives = [(changed[b.safe] & b.inuniv).any(dim=1) for b in bins]
-        counts = torch.stack([a.sum() for a in actives])
         bits = new_bits
         rounds += 1
         evals += n_active
@@ -873,6 +921,22 @@ def _matcher_spec(matcher, k: int, Np: int) -> RoundSpec:
     )
 
 
+def _pad_rows(arrs: list[np.ndarray], mult: int) -> list[np.ndarray]:
+    """Pad the batch axis to a multiple of the shard count.
+
+    Padding rows are all-zero: ``pair_mask`` False everywhere makes them
+    inert (no candidate pairs, no scatters — `x & pair_mask` is False).
+    """
+    b = arrs[0].shape[0]
+    target = max(-(-b // mult) * mult, mult)
+    if target == b:
+        return arrs
+    return [
+        np.concatenate([a, np.zeros((target - b,) + a.shape[1:], a.dtype)])
+        for a in arrs
+    ]
+
+
 # ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
@@ -917,7 +981,7 @@ def run_parallel(
     fused: bool = True,
     device=None,
 ) -> EMResult:
-    """Round-parallel NO-MP / SMP / MMP on one device.
+    """Round-parallel NO-MP / SMP / MMP on one device or over a mesh.
 
     See :func:`_run_parallel_impl` for the engine semantics; this entry
     point additionally (a) runs the whole call inside an opt-in
@@ -928,11 +992,18 @@ def run_parallel(
 
     ``device=None`` means CUDA and raises without a GPU; pass
     ``device="cpu"`` for the plain kernel versions.  It must be the
-    matcher's device.  ``mesh`` must be None (one device).
+    matcher's device.  ``mesh`` (a :class:`repro_torch.launch.mesh.EMMesh`,
+    e.g. :func:`make_em_mesh`) splits every bin's rows over its ranks;
+    every rank must make the same call, and ``device`` then defaults to
+    the mesh's.  ``mesh=None`` runs on one device.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    if mesh is not None and not isinstance(mesh, EMMesh):
+        raise TypeError(f"mesh must be an EMMesh (launch.mesh), not {type(mesh).__name__}")
+    dev = resolve_device(mesh.device if mesh is not None and device is None else device)
+    if mesh is None:
+        mesh = EMMesh.local(dev)
+    elif not _same_device(mesh.device, dev):
+        raise ValueError(f"run_parallel on {dev}, but the mesh's rank is on {mesh.device}")
     mdev = getattr(matcher, "device", None)
     if mdev is not None and not _same_device(mdev, dev):
         raise ValueError(f"run_parallel on {dev}, but the matcher runs on {mdev}")
@@ -940,7 +1011,7 @@ def run_parallel(
         res = _run_parallel_impl(
             packed, matcher, gg, scheme=scheme, max_rounds=max_rounds,
             fast_rounds=fast_rounds, active=active, init_matches=init_matches,
-            pool=pool, gcache=gcache, fused=fused, device=dev,
+            pool=pool, gcache=gcache, fused=fused, device=dev, mesh=mesh,
         )
     return publish_em_result(res)
 
@@ -959,6 +1030,7 @@ def _run_parallel_impl(
     gcache: GroundingCache | None,
     fused: bool,
     device: torch.device,
+    mesh: EMMesh,
 ) -> EMResult:
     """Round-parallel NO-MP / SMP / MMP.
 
@@ -1013,10 +1085,10 @@ def _run_parallel_impl(
         return _run_parallel_legacy(
             packed, matcher, gg, scheme=scheme, max_rounds=max_rounds,
             fast_rounds=fast_rounds, active=active, init_matches=init_matches,
-            pool=pool, t0=t0, universe=universe, device=dev,
+            pool=pool, t0=t0, universe=universe, device=dev, mesh=mesh,
         )
 
-    bins = _prepare_bins(packed, universe)
+    bins = _prepare_bins(packed, universe, pad_mult=mesh.size)
     bin_ks = sorted(bins)
     gcache = gcache if gcache is not None else GroundingCache()
     mkey = (*_matcher_cache_key(matcher), dev)
@@ -1124,6 +1196,9 @@ def _run_parallel_impl(
             keep.extend(int(packed.bin_rows[k][r]) for r in live)
         return sorted(keep)
 
+    # this rank's rows of each (padded) bin
+    row_slice = {k: mesh.row_slice(bins[k].entity_mask.shape[0]) for k in bin_ks}
+
     def fused_call(kind, act_masks, budget):
         nonlocal dispatches
         spec = FusedSpec(kinds=tuple(kind for _ in bin_ks), universe_size=Np)
@@ -1132,16 +1207,17 @@ def _run_parallel_impl(
                 g=ground_of(k), uidx=dev_uidx[k], safe=dev_safe[k],
                 inuniv=dev_inuniv[k],
                 active=torch.as_tensor(act_masks[k], device=dev),
+                lo=row_slice[k][0], hi=row_slice[k][1],
             )
             for k in bin_ks
         ]
         with obs_span("rounds.fused", kind=kind):
             bits, r, ev, hist = _fused_rounds(
-                spec, per_bin, torch.as_tensor(m_bits, device=dev), budget
+                spec, per_bin, put_replicated(m_bits, mesh), budget, mesh
             )
             # np.array, not .numpy(): callers mutate m_bits in place
             # (_set_bits), and on the CPU .numpy() shares the tensor's memory
-            bits = np.array(bits.cpu())
+            bits = np.array(host_array(bits))
         dispatches += 1
         return bits, r, ev, hist
 
@@ -1166,38 +1242,61 @@ def _run_parallel_impl(
 
     def full_round_over(act_list):
         """One host-visible full round: one call per bin with active
-        rows.  Returns (newly matched gids, messages).  Mutates
-        m_bits/m_plus."""
+        rows, each rank on its slice; one bitset reduction, and for MMP
+        one gather of the labels, a round (the rows' ``x`` is not
+        gathered: the host reads it only through the bitset).  Returns
+        (newly matched gids, messages).  Mutates m_bits/m_plus."""
         nonlocal dispatches, evals, rounds, full_rounds, m_bits, m_plus
         act_masks = masks_for(act_list)
         history.append(len(act_list))
         rounds += 1
         full_rounds += 1
-        new_bits = m_bits.copy()
-        round_msgs: list[list[int]] = []
-        m_bits_dev = torch.as_tensor(m_bits, device=dev)
+        want_labels = scheme == "mmp" and collective
+        m_bits_dev = put_replicated(m_bits, mesh)
+        hit = torch.zeros(Np, dtype=torch.bool, device=dev)
+        labelled = []  # (bin, its active rows, this rank's (m, P) labels)
         with obs_span("rounds.full", active=len(act_list)):
             for k in bin_ks:
                 am = act_masks[k]
                 if not am.any():
                     continue
-                spec = BinRoundSpec(
-                    kind=base_kind, num_pairs=bins[k].pair_mask.shape[1], universe_size=Np
-                )
+                lo, hi = row_slice[k]
                 rows_np = np.flatnonzero(am)
-                rows = None if len(rows_np) == len(am) else torch.as_tensor(rows_np, device=dev)
+                mine = rows_np[(rows_np >= lo) & (rows_np < hi)]
+                dispatches += 1
+                evals += len(rows_np)
+                P = bins[k].pair_mask.shape[1]
+                spec = BinRoundSpec(kind=base_kind, num_pairs=P, universe_size=Np)
+                if want_labels:
+                    # the rank's slice: padded bins make them all equal
+                    lab_local = torch.full((hi - lo, P), P, dtype=torch.int32, device=dev)
+                    labelled.append((k, rows_np, lab_local))
+                if not len(mine):
+                    continue
+                mesh.rows_evaluated += len(mine)
+                rows = (None if len(mine) == len(am)
+                        else torch.as_tensor(mine, device=dev))
                 g = tuple(_take(a, rows) for a in ground_of(k))
                 x, lab, bits = _bin_full_round(
                     spec, g, _take(dev_uidx[k], rows), _take(dev_pmask[k], rows),
                     m_bits_dev,
                 )
-                dispatches += 1
-                evals += len(rows_np)
-                new_bits |= bits.cpu().numpy()
-                if scheme == "mmp" and collective:
-                    round_msgs += _labels_to_messages(
-                        bins[k].pair_gid[rows_np], lab.cpu().numpy(), m_plus
-                    )
+                hit |= bits
+                if want_labels:
+                    lab_local[torch.as_tensor(mine - lo, device=dev)] = lab
+            new_bits = np.array(host_array(mesh.reduce_bits(hit))) | m_bits
+        round_msgs: list[list[int]] = []
+        if labelled:
+            flat = torch.cat([lab.reshape(-1) for _, _, lab in labelled])
+            every = host_array(mesh.gather_rows(flat))  # (ranks, sum m*P)
+            off = 0
+            for k, rows_np, lab in labelled:
+                m, P = lab.shape
+                whole = every[:, off:off + m * P].reshape(mesh.size * m, P)
+                off += m * P
+                round_msgs += _labels_to_messages(
+                    bins[k].pair_gid[rows_np], whole[rows_np], m_plus
+                )
         newly = universe[new_bits & ~m_bits]
         m_bits = new_bits
         m_plus = m_plus.union(newly)
@@ -1330,11 +1429,15 @@ def _run_parallel_legacy(
     t0: float,
     universe: np.ndarray,
     device: torch.device,
+    mesh: EMMesh,
 ) -> EMResult:
     """The pre-fusion host round loop: one call per bin per round,
     re-grounding from raw arrays every time, per-row message walks.
     Kept as the differential baseline (the tests assert bit-for-bit
-    equality with the fused engine)."""
+    equality with the fused engine).  Over a mesh each bin's selected
+    rows are padded to a multiple of the rank count (:func:`_pad_rows`)
+    and each rank evaluates its slice; the bitset is OR-reduced and the
+    rows' ``x``/labels all-gathered a call."""
     Np = len(universe)
     bins = _prepare_bins(packed, universe)
 
@@ -1366,7 +1469,7 @@ def _run_parallel_legacy(
             scheme == "mmp" and fast_rounds and not full_round
             and isinstance(matcher, MLNMatcher) and matcher.collective
         )
-        m_bits_dev = torch.as_tensor(m_bits, device=device)
+        m_bits_dev = put_replicated(m_bits, mesh)
         for k, rows in sorted(packed.rows_for(active).items()):
             bt = bins[k]
             gid_rows = bt.pair_gid[rows]
@@ -1374,18 +1477,23 @@ def _run_parallel_legacy(
             spec = _matcher_spec(matcher, k, Np)
             if use_greedy:
                 spec = dataclasses.replace(spec, matcher_kind="mln_greedy")
-            x, lab, bits = _device_round(
-                spec, device, bt.entity_mask[rows], bt.coauthor[rows],
-                bt.sim_level[rows], bt.pair_mask[rows], bt.uidx[rows], m_bits_dev,
+            sel = _pad_rows(
+                [bt.entity_mask[rows], bt.coauthor[rows], bt.sim_level[rows],
+                 bt.pair_mask[rows], bt.uidx[rows]], mesh.size,
             )
+            lo, hi = mesh.row_slice(len(sel[0]))
+            mesh.rows_evaluated += max(min(hi, n_rows) - lo, 0)
+            x, lab, bits = _device_round(spec, device, *(a[lo:hi] for a in sel), m_bits_dev)
+            if mesh_spans_processes(mesh):
+                bits = mesh.reduce_bits(bits)
+                x = mesh.gather_rows(x).flatten(0, 1)[:n_rows]
+                lab = mesh.gather_rows(lab).flatten(0, 1)[:n_rows]
             dispatches += 1
-            x = x.cpu().numpy()
-            new_bits |= bits.cpu().numpy()
+            x = host_array(x)
+            new_bits |= host_array(bits)
             evals += n_rows
             if scheme == "mmp":
-                round_msgs.extend(
-                    _labels_to_messages(gid_rows, lab.cpu().numpy(), m_plus)
-                )
+                round_msgs.extend(_labels_to_messages(gid_rows, host_array(lab), m_plus))
             if scheme == "nomp":
                 # no exchange: collect matches directly, never re-activate
                 for r in range(n_rows):

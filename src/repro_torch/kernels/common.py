@@ -1,4 +1,4 @@
-"""Shared helpers for the port's kernels: tiling, tolerances, devices.
+"""Shared helpers for the port's kernels: tiling, tolerances, devices, meshes.
 
 Routing policy (``ops.py`` of every kernel): a wrapper runs its kernel's
 plain PyTorch version only because the tensors it was given lie on the
@@ -80,3 +80,35 @@ def check_operand(
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# Mesh helpers (sharded serving: repro_torch.launch.mesh.EMMesh)
+# ---------------------------------------------------------------------------
+
+
+def mesh_spans_processes(mesh) -> bool:
+    """True when ``mesh`` has more than one rank (one process a rank)."""
+    return mesh is not None and mesh.size > 1
+
+
+def put_replicated(x, mesh) -> torch.Tensor:
+    """Upload a host array to this rank's device: every rank holds the
+    same host state, so a replicated value is a plain upload."""
+    return torch.as_tensor(np.asarray(x), device=mesh.device)
+
+
+def put_sharded(x, mesh, axis: int = 0) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``axis``, on its device: the axis
+    padded to a multiple of the rank count and split evenly
+    (``EMMesh.row_slice``; the last slices may be short or empty)."""
+    x = np.asarray(x)
+    lo, hi = mesh.row_slice(x.shape[axis])
+    return torch.as_tensor(np.take(x, np.arange(lo, hi), axis=axis), device=mesh.device)
+
+
+def host_array(x) -> np.ndarray:
+    """Bring a (replicated) device tensor back to the host as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

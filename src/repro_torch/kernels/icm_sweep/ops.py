@@ -42,10 +42,12 @@ def sweep_batched(u, C, X):
     )
     build.check("icm_sweep", rc)
     sweep_batched.launches += 1
+    sweep_batched.rows += B
     return out
 
 
 sweep_batched.launches = 0
+sweep_batched.rows = 0  # the batch rows B, summed over the launches
 
 
 def sweep_matrix(u, C, X):

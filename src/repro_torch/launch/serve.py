@@ -6,8 +6,12 @@ batches of ``--batch`` with ``--max-new`` greedy tokens each.  It runs on
 CUDA unless ``--device cpu`` is given; the first prefill builds the
 CUDA kernels.  ``--smoke`` serves the architecture's reduced config.
 
-The reference's ``--em`` mode (the sharded entity-resolution service)
-is not ported yet (``ROADMAP.md`` Queue 1 item 9).
+``--em`` switches to the sharded entity-resolution service instead: one
+:class:`repro_torch.stream.shard.ShardCoordinator` replica a process.
+Run it once a rank with ``REPRO_SHARD_COORD`` / ``REPRO_SHARD_N`` /
+``REPRO_SHARD_ID`` set (see :mod:`repro_torch.launch.mesh` for the
+backend rule); a bare single-process invocation serves the unsharded
+one-shard case.  It exits 1 when the replicas' digests differ.
 """
 
 from __future__ import annotations
@@ -19,14 +23,53 @@ import time
 import numpy as np
 
 
-def main(argv=None) -> list[list[int]]:
-    """Serve the requests, print the reference's summary line, and
-    return the generated tokens of each request."""
-    argv = sys.argv[1:] if argv is None else list(argv)
-    from repro_torch.models.layers import unported
+def em_main(argv=None) -> str:
+    """Serve a HEPTH-like stream through this rank's shard, print the
+    reference's summary line, and return the state digest."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--em", action="store_true")
+    ap.add_argument("--scheme", default="smp", choices=["smp", "mmp"])
+    ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--batches", type=int, default=6)
+    ap.add_argument("--shards", type=int, default=None)
+    ap.add_argument("--device", default=None, help="torch device (default: the rank's card)")
+    args = ap.parse_args(argv)
 
+    from repro_torch.data.synthetic import SynthConfig, arrival_stream, make_dataset
+    from repro_torch.stream.service import ServiceConfig
+    from repro_torch.stream.shard import ShardContext, ShardCoordinator
+
+    ctx = ShardContext.create(args.shards, device=args.device)
+    coord = ShardCoordinator(ctx, config=ServiceConfig(scheme=args.scheme, parallel=True))
+    ds = make_dataset(SynthConfig.hepth(scale=args.scale, seed=7))
+    t0 = time.perf_counter()
+    n_refs = 0
+    for b in arrival_stream(ds, n_batches=args.batches):
+        coord.ingest(list(b.names), b.edges)
+        n_refs += len(b.names)
+    dt = time.perf_counter() - t0
+    agree = coord.digests_agree()
+    digest = coord.digest()
+    print(
+        f"shard {ctx.shard_id}/{ctx.n_shards}: {n_refs} refs in {dt:.2f}s "
+        f"({n_refs / dt:.1f} refs/s), "
+        f"{len(coord.snapshot().clusters())} clusters, "
+        f"digest {digest[:12]} "
+        f"({'replicas agree' if agree else 'REPLICA DIVERGENCE'})",
+        flush=True,
+    )
+    if not agree:
+        raise SystemExit(1)
+    return digest
+
+
+def main(argv=None) -> list[list[int]] | str:
+    """Serve the requests, print the reference's summary line, and
+    return the generated tokens of each request (``--em``: the state
+    digest)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     if "--em" in argv:
-        raise unported("the sharded entity-resolution service (--em)", item=9)
+        return em_main(argv)
 
     from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
     from repro_torch.models.registry import get_model

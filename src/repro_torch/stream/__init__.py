@@ -34,8 +34,9 @@ to it by :func:`repro_torch.stream.digest.state_digest` after every
 ingest.  Durability (:mod:`repro_torch.stream.wal` and the
 checkpointer: ``ServiceConfig.durability_dir``,
 ``ResolveService.recover``) and the coalescing serving front-end
-(:mod:`repro_torch.stream.serving`) are the reference's too; sharding
-(``shard``) waits for ``ROADMAP.md`` Queue 1 item 9.
+(:mod:`repro_torch.stream.serving`) are the reference's too, and so is
+sharded serving (:mod:`repro_torch.stream.shard`: one replica a rank of
+a ``torch.distributed`` group).
 """
 
 from repro_torch.stream.service import (

@@ -107,6 +107,8 @@ class DeltaCover:
         boundary_relation: str = "coauthor",
         lsh: LSHConfig | None = None,
         level_cache_max: int | None = None,
+        shard=None,
+        shard_merge=None,
         device=None,
     ):
         self.t_loose = t_loose
@@ -117,7 +119,10 @@ class DeltaCover:
         self.thresholds = thresholds or simlib.DEFAULT_THRESHOLDS
         self.boundary_relation = boundary_relation
         self.device = resolve_device(device)
-        self.index = MinHashLSHIndex(lsh, device=self.device)
+        # sharded serving: the index keeps only this rank's buckets and
+        # unites each probe's candidates over the ranks (stream.shard)
+        self.index = MinHashLSHIndex(lsh, shard=shard, merge=shard_merge,
+                                     device=self.device)
 
         self.names: list[str | None] = []  # id -> name (None = hole)
         self.present: set[int] = set()

@@ -77,18 +77,22 @@ class IncrementalEngine:
         *,
         scheme: str = "smp",
         parallel: bool = False,
+        mesh=None,
         gcache_capacity: int | None = None,
         gcache_hbm_budget: int | None = None,
         device=None,
     ):
         """``device`` is where the parallel engine runs (``None`` means
         CUDA and raises without a GPU); the sequential engine runs on the
-        matcher's own device and ignores it."""
+        matcher's own device and ignores it.  ``mesh`` (sharded serving
+        hands the service mesh here) splits the parallel engine's bin
+        rows over its ranks; None runs on one device."""
         if scheme not in ("smp", "mmp"):
             raise ValueError(f"streaming scheme must be smp|mmp, got {scheme!r}")
         self.matcher = matcher
         self.scheme = scheme
         self.parallel = parallel
+        self.mesh = mesh
         self.device = resolve_device(device) if parallel else None
         self.m_plus = MatchStore()
         self.pool = MessagePool()
@@ -190,6 +194,7 @@ class IncrementalEngine:
                     init_matches=carried,
                     pool=self.pool if self.scheme == "mmp" else None,
                     gcache=self.gcache,
+                    mesh=self.mesh,
                     device=self.device,
                 )
             elif self.scheme == "smp":

@@ -17,6 +17,13 @@ near-1 and below which work is saved.
 Device traffic: the hash table goes to the device once, when the index
 is built; each ``add`` uploads one presence matrix and reads its
 signatures back once.  The bucket dicts stay on the host.
+
+Sharded serving partitions the bucket map: with a ``shard``
+(:class:`repro_torch.launch.sharding.ShardSpec`) the index stores and
+probes only the buckets it owns, and ``merge`` (a cross-rank union,
+:meth:`repro_torch.launch.sharding.ShardMerger.union`) puts each probe's
+candidate set back together.  Signatures stay replicated: every rank
+runs ``minhash`` over every arrival.
 """
 
 from __future__ import annotations
@@ -90,8 +97,15 @@ class MinHashLSHIndex:
     buckets) once the cap or age limit is exceeded.
     """
 
-    def __init__(self, cfg: LSHConfig | None = None, *, device=None):
+    def __init__(self, cfg: LSHConfig | None = None, *, shard=None, merge=None,
+                 device=None):
         self.cfg = cfg or LSHConfig()
+        # bucket-map partitioning for sharded serving: the partition is
+        # exhaustive, so the merged set equals the unsharded index's
+        # answer exactly; merge runs on EVERY query (it is a collective —
+        # all ranks must reach it together, even with an empty local set)
+        self.shard = shard
+        self.merge = merge
         self.device = resolve_device(device)
         self.table = minhash_ops.hash_table(
             self.cfg.num_hashes, self.cfg.shingle_dim, seed=self.cfg.seed
@@ -115,10 +129,13 @@ class MinHashLSHIndex:
     def __getstate__(self):
         # The device copy of the hash table is derived state: pickling
         # (the service's checkpoint) drops it and the device, so the
-        # state restores on any device (:meth:`place` re-places it).
+        # state restores on any device (:meth:`place` re-places it).  The
+        # merge hook belongs to this process's group: the restoring
+        # service binds its own (the shard spec, data, is kept).
         state = self.__dict__.copy()
         state["device"] = None
         state["_table_t"] = None
+        state["merge"] = None
         return state
 
     def place(self, device) -> None:
@@ -166,7 +183,10 @@ class MinHashLSHIndex:
         self.n_adds += 1
         for eid, sig in zip(ids, sigs):
             eid = int(eid)
-            keys = list(self._band_keys(sig))
+            keys = [
+                (b, key) for b, key in self._band_keys(sig)
+                if self.shard is None or self.shard.owns(b, key)
+            ]
             if self.cfg.bounded and eid in self._keys_of:
                 self._scrub(eid)
                 self._order.remove(eid)
@@ -220,11 +240,20 @@ class MinHashLSHIndex:
             self.n_evicted += 1
 
     def query(self, sigs: np.ndarray, exclude: set[int] | None = None) -> set[int]:
-        """Union of indexed entities colliding with any probe signature."""
+        """Union of indexed entities colliding with any probe signature.
+
+        Sharded: local buckets cover only the owned slice of the bucket
+        map, so the probe result is united across ranks before the
+        exclusion — every rank sees the exact unsharded answer.
+        """
         out: set[int] = set()
         for sig in np.atleast_2d(sigs):
             for b, key in self._band_keys(sig):
+                if self.shard is not None and not self.shard.owns(b, key):
+                    continue
                 out.update(self.buckets[b].get(key, ()))
+        if self.merge is not None:
+            out = self.merge(out)
         if exclude:
             out -= exclude
         return out

@@ -63,8 +63,10 @@ front-end (async ingest queue, micro-batch coalescing, admission
 control) lives in :mod:`repro_torch.stream.serving` and drives this
 service single-writer.
 
-Not ported yet, and refused when asked for: sharded serving
-(``ROADMAP.md`` Queue 1 item 9).
+Sharded serving (``shard=``, a :class:`repro_torch.stream.shard.ShardContext`):
+one replica a rank, the LSH bucket map partitioned over the ranks and
+the parallel engine's bin rows split over them; see
+:mod:`repro_torch.stream.shard`.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ from repro_torch.core.closure import UnionFind
 from repro_torch.core.cover import DEFAULT_BINS
 from repro_torch.core.global_grounding import GroundingMaintainer
 from repro_torch.core.mln import MLNMatcher, MLNWeights, PAPER_LEARNED
+from repro_torch.core.parallel import _same_device
 from repro_torch.core.types import MatchStore
 from repro_torch.kernels.common import resolve_device
 from repro_torch.obs import get_registry, total_upload_bytes
@@ -93,12 +96,6 @@ from repro_torch.stream.delta import DeltaCover
 from repro_torch.stream.engine import IncrementalEngine
 from repro_torch.stream.index import LSHConfig
 from repro_torch.stream.wal import WriteAheadLog
-
-SHARD_NOT_PORTED = (
-    "sharded serving is not ported yet: see ROADMAP.md, Queue 1, item 9 "
-    "(Sharded serving)"
-)
-
 
 @dataclasses.dataclass
 class IngestReport:
@@ -324,8 +321,13 @@ class ResolveService:
         schedule-invariance the recovered fixpoint is bit-for-bit the
         uninterrupted one.
 
-        ``shard`` raises ``NotImplementedError`` naming the
-        ``ROADMAP.md`` item that ports it."""
+        ``shard`` (a :class:`repro_torch.stream.shard.ShardContext`)
+        turns on sharded serving: the LSH bucket map is partitioned
+        across the context's ranks (probes merge by cross-rank union)
+        and the parallel engine runs its rounds on the context's mesh;
+        ``device`` then defaults to the rank's.  The logical state stays
+        replicated on every rank — see :mod:`repro_torch.stream.shard`
+        for the equivalence argument."""
         if deprecated_kwargs:
             if config is not None:
                 raise TypeError(
@@ -340,12 +342,17 @@ class ResolveService:
             )
             config = ServiceConfig(**deprecated_kwargs)
         cfg = config if config is not None else ServiceConfig()
-        if shard is not None:
-            raise NotImplementedError(SHARD_NOT_PORTED)
         self.config = cfg
         self.weights = cfg.weights
         self.scheme = cfg.scheme
+        self.shard = shard
+        if shard is not None and device is None:
+            device = shard.mesh.device
         self.device = resolve_device(device)
+        if shard is not None and not _same_device(self.device, shard.mesh.device):
+            raise ValueError(
+                f"the service on {self.device}, but its shard's rank is on {shard.mesh.device}"
+            )
         matcher = cfg.build_matcher(self.device)
         self.delta = DeltaCover(
             t_loose=cfg.t_loose,
@@ -357,6 +364,8 @@ class ResolveService:
             boundary_relation=cfg.boundary_relation,
             lsh=cfg.lsh,
             level_cache_max=cfg.level_cache_max,
+            shard=shard.spec if shard is not None else None,
+            shard_merge=shard.merger.union if shard is not None else None,
             device=self.device,
         )
         # families that score by entity *name* read the live id -> name
@@ -369,6 +378,7 @@ class ResolveService:
             matcher,
             scheme=cfg.scheme,
             parallel=cfg.parallel,
+            mesh=shard.mesh if shard is not None else None,
             gcache_capacity=cfg.gcache_capacity,
             gcache_hbm_budget=cfg.gcache_hbm_budget,
             device=self.device,
@@ -613,7 +623,15 @@ class ResolveService:
 
     def _load_logical_state(self, state: dict) -> None:
         self._seq = int(state["seq"])
-        self.delta = state["delta"]
+        delta = state["delta"]
+        spec = self.shard.spec if self.shard is not None else None
+        if delta.index.shard != spec:
+            raise ValueError(
+                f"the checkpoint holds the LSH buckets of shard {delta.index.shard}, "
+                f"and this service is shard {spec}"
+            )
+        delta.index.merge = self.delta.index.merge  # this process's collective
+        self.delta = delta
         self.delta.place(self.device)  # device copies re-made lazily
         self.grounding = state["grounding"]
         eng = state["engine"]

@@ -373,8 +373,17 @@ def test_checkpointer_refuses_bad_shapes_and_meshes(tmp_path):
     ck.save(1, {"s": {"w": np.zeros((2, 3), np.float32)}})
     with pytest.raises(ValueError, match="shape mismatch"):
         ck.restore(1, {"s": {"w": np.zeros((3, 2), np.float32)}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ck.restore(1, {"s": {"w": np.zeros((2, 3), np.float32)}}, shardings={"s": None})
+    with pytest.raises(ValueError, match="unsupported placement"):
+        ck.restore(1, {"s": {"w": np.zeros((2, 3), np.float32)}}, device="cpu",
+                   shardings={"s": None})
+    # a mesh and its placements restore (sharded serving's elastic path)
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core.parallel import make_em_mesh
+
+    got = ck.restore(1, {"s": {"w": np.zeros((2, 3), np.float32)}},
+                     mesh=make_em_mesh(device="cpu"), shardings={"s": Shard(0)})
+    assert torch.equal(got["s"]["w"], torch.zeros((2, 3)))
 
 
 def test_checkpoint_rename_is_atomic(tmp_path):

@@ -26,6 +26,7 @@ assert {{
     "repro_torch.core.matchers", "repro_torch.core.matchers.assignment",
     "repro_torch.core.matchers.embedding", "repro_torch.stream.serving",
     "repro_torch.stream.wal", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.stream.shard",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -199,20 +200,39 @@ def test_resolve_service_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
 
 @pytest.mark.parametrize("what", ["shard", "recover_shard", "checkpoint_shardings"])
 def test_unported_service_options_raise(what, tmp_path):
-    """Each option whose engine is not ported yet raises and names its ROADMAP item."""
+    """Each sharded-serving option, which used to raise, now runs on the CPU
+    (on a one-rank shard context here; many ranks in test_torch_shard_mesh.py)."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate
+
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.stream import ResolveService, ServiceConfig
+    from repro_torch.stream.digest import state_digest
+    from repro_torch.stream.shard import ShardContext
 
-    make = {
-        "shard": lambda: ResolveService(shard=object(), device="cpu"),
-        "recover_shard": lambda: ResolveService.recover(
-            str(tmp_path), ServiceConfig(durability_dir=str(tmp_path)), shard=object(),
-            device="cpu"),
-        "checkpoint_shardings": lambda: Checkpointer(str(tmp_path)).restore(
-            0, {}, shardings={}),
-    }[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make()
+    ctx = ShardContext.create(device="cpu")
+    names = ["ada lovelace", "a. lovelace", "charles babbage"]
+    if what == "shard":
+        svc = ResolveService(shard=ctx, device="cpu")
+        svc.ingest(names)
+        assert svc.shard is ctx and svc.delta.index.shard == ctx.spec
+        assert svc.delta.index.merge == ctx.merger.union
+    elif what == "recover_shard":
+        cfg = ServiceConfig(durability_dir=str(tmp_path), checkpoint_every=1)
+        svc = ResolveService(cfg, shard=ctx, device="cpu")
+        svc.ingest(names)
+        svc.close()
+        rec = ResolveService.recover(str(tmp_path), cfg, shard=ctx, device="cpu")
+        assert state_digest(rec) == state_digest(svc)
+        # the checkpoint dropped the merge hook: recovery binds this process's
+        assert rec.delta.index.merge == ctx.merger.union
+        rec.close()
+    else:
+        ck = Checkpointer(str(tmp_path))
+        ck.save(0, {"s": {"w": np.ones(3, np.float32)}})
+        got = ck.restore(0, {"s": {"w": np.zeros(3, np.float32)}}, mesh=ctx.mesh,
+                         shardings={"s": Replicate()})
+        assert torch.equal(got["s"]["w"], torch.ones(3))
 
 
 def test_durable_service_and_recovery_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):

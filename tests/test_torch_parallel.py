@@ -165,8 +165,17 @@ def test_entry_points_default_to_cuda(monkeypatch, state):
 
 def test_refusals(state):
     _, _, ppk, pgg = state
-    with pytest.raises(NotImplementedError, match="item 9"):
-        parallel.run_parallel(ppk, MLNMatcher(device="cpu"), pgg, mesh=object(), device="cpu")
+    # a mesh runs (a one-rank one here: sharded serving's many-rank runs
+    # are in test_torch_shard_mesh.py); anything else is refused
+    m = MLNMatcher(device="cpu")
+    mesh = parallel.make_em_mesh(device="cpu")
+    assert mesh.size == 1 and mesh.axis_names == ("data",)
+    assert np.array_equal(
+        parallel.run_parallel(ppk, m, pgg, mesh=mesh).matches.gids,
+        parallel.run_parallel(ppk, m, pgg, device="cpu").matches.gids,
+    )
+    with pytest.raises(TypeError, match="EMMesh"):
+        parallel.run_parallel(ppk, m, pgg, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="no grounding builder registered for kind 'nowhere'"):
         parallel._ground_bin_fn("nowhere", None, torch.device("cpu"))
     assert "embed" in parallel._GROUND_BUILDERS  # the embedding family's, beside mln and rules

@@ -13,6 +13,8 @@ the Chrome-trace and snapshot exporters of ``repro_torch.obs``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import json
 
 import numpy as np
@@ -143,7 +145,9 @@ def test_splice_regrounds_only_the_changed_row_and_rolls_back(state):
     kept = tuple(a.clone() for a in first)
     assert cache.rows_ground == bt.entity_mask.shape[0]
 
-    changed = parallel._BinTensors(**{f: getattr(bt, f).copy() for f in bt.__dataclass_fields__})
+    changed = dataclasses.replace(bt, **{
+        f: getattr(bt, f).copy() for f in bt.__dataclass_fields__ if f != "n_rows"
+    })
     row = int(np.flatnonzero(changed.pair_mask.any(axis=1))[0])
     p = int(np.flatnonzero(changed.pair_mask[row])[0])
     changed.sim_level[row, p] = 3 if changed.sim_level[row, p] != 3 else 2

@@ -118,8 +118,10 @@ def test_launcher_serves_a_smoke_model_on_cpu(capsys):
     assert line.startswith("yi-smoke: 3 requests, 12 tokens, ")
 
 
-def test_launcher_modes_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.main(["--em"])
+def test_launcher_modes_not_ported(capsys):
+    # --em serves the sharded EM service (one rank here, on the CPU)
+    digest = serve.main(["--em", "--device", "cpu", "--scale", "0.02", "--batches", "2"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("shard 0/1: ") and f"digest {digest[:12]} (replicas agree)" in line
     with pytest.raises(NotImplementedError, match="item 10"):
         serve.main(["--arch", "falcon_mamba_7b", "--smoke", "--device", "cpu"])
