@@ -89,9 +89,11 @@
    ``icm_sweep`` launches and rows against the one-rank stream of phase
    ``parallel``, and the backend.
 10. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
-   layers, weights drawn on the CPU with ``init_params``, a prefill of 4
-   prompts of 32 tokens and 4 greedy decode steps teacher-forced with the
-   CPU's tokens; the largest logit difference over the largest logit must
+   layers, weights drawn on the card with ``init_params`` and copied to the
+   CPU, a prefill of 4 prompts of 32 tokens and 4 greedy decode steps on the
+   card, the CPU teacher-forced with the card's tokens (``lm_card_vs_cpu``,
+   which phase ``lm_families`` shares); the largest logit difference over
+   the largest logit must
    stay within 2e-2, and greedy tokens must agree wherever the CPU's
    top-1/top-2 margin is above twice that difference.  Then serving at full
    depth (32 layers, weights drawn on the card):
@@ -103,9 +105,31 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-11. Profile: the first 100 MMP evaluations once more under
+11. LM families (``lm_families``): the MoE (Llama-4 Scout, Moonlight), MLA
+   (MiniCPM3), VLM (Qwen2-VL) and SSM (Falcon-Mamba) configurations at full
+   width, weights from ``init_params`` seed 0 (``LM_FAMILIES``).  Each first
+   on the card against the CPU from one draw at a cut depth: a prefill of 4
+   prompts of 32 tokens and 4 greedy decode steps on the card, the CPU
+   teacher-forced with the card's tokens, max |dlogit| / max |logit| <=
+   2e-2 and greedy tokens equal where the CPU's margin is clear; for MoE
+   the CPU also takes the card's routing (its own gates), every routing
+   call's own choices are recorded on both, each (token, layer) set whose
+   experts differ must have a CPU margin (k-th minus (k+1)-th probability)
+   below that call's router-logit error, and the logits are compared where
+   the token they come from agreed at every layer.  Qwen2-VL also runs ``forward_train`` with 1,024
+   vision patches at distinct M-RoPE streams (B=1, S=1,088, 1 layer) and
+   Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers) against the
+   CPU.  Then each is served through ``repro_torch.launch.serve.main``
+   (``--layers`` where the weights must be cut): 4 requests of 32 tokens in
+   a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
+   through an ``Engine`` of batch 1.  Logits finite, every request its
+   tokens, and ``flash_attn`` launched exactly layers x prefills times, all
+   on the tensor-core route (MiniCPM3's q.k dim 96 and v dim 64 padded to
+   128), and 0 times for Falcon-Mamba.  Prints prefill and decode ms,
+   tokens/s, peak memory and the busy share of one more batch run.
+12. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-12. The card's name and power limit, the kernel list as one JSON line, and
+13. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -443,9 +467,10 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         return torch.as_tensor(a, device=dev)
 
     def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS,
-              iters=50, dense=None):
+              iters=50, dense=None, unpadded=None):
         """``dense``: (bytes, ops) of a kernel that reads every input whole,
-        where ``n_bytes`` and ``ops`` count only what this input's data needs."""
+        where ``n_bytes`` and ``ops`` count only what this input's data needs;
+        ``unpadded``: (bytes, ops) of the work before its head dims were padded."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if tol is None:  # exact: integer outputs
@@ -462,12 +487,16 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, peak)
         if dense is not None:
             row["dense_bound_ms"] = bound(*dense, peak)[0]
+        if unpadded is not None:
+            row["unpadded_bound_ms"] = bound(*unpadded, peak)[0]
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(
             f"[kernels] {name:9s} {shape:22s} ok  max_abs_err={row['max_abs_err']:.3g}"
             f"  kernel_ms={ms:.4f} (eager call {call_ms:.4f})  plain_ms={row['plain_ms']:.4f}"
             f"  library_ms={lib}  bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
             + (f"  dense_bound_ms={row['dense_bound_ms']:.5f}" if dense is not None else "")
+            + (f"  unpadded_bound_ms={row['unpadded_bound_ms']:.5f}"
+               if unpadded is not None else "")
         )
         rows.append(row)
 
@@ -572,18 +601,23 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
 
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
-    # 64), then the reference test's f32 shapes, a ragged S = T, and a
-    # causal S < T
-    for B, S, T, H, hkv, hd, dtype, causal in [
-        (4, 32, 32, 32, 4, 128, torch.bfloat16, True),
-        (1, 4096, 4096, 32, 4, 128, torch.bfloat16, True),
-        (8, 32, 32, 4, 4, 8, torch.bfloat16, True),
-        (1, 2048, 2048, 16, 16, 64, torch.bfloat16, True),
-        *[(2, S_, S_, H_, k_, d_, torch.float32, c)
+    # 64; then the lm_families phase's: MiniCPM3's MLA long prompt, q.k dim
+    # 96 and v dim 64 zero-padded to 128, Llama-4 Scout's GQA group of 5, and
+    # Qwen2-VL's group of 7 at its vision forward), then the reference test's
+    # f32 shapes, a ragged S = T, and a causal S < T
+    for B, S, T, H, hkv, hd, dtype, causal, mla in [
+        (4, 32, 32, 32, 4, 128, torch.bfloat16, True, None),
+        (1, 4096, 4096, 32, 4, 128, torch.bfloat16, True, None),
+        (8, 32, 32, 4, 4, 8, torch.bfloat16, True, None),
+        (1, 2048, 2048, 16, 16, 64, torch.bfloat16, True, None),
+        (1, 4096, 4096, 40, 40, 128, torch.bfloat16, True, (96, 64)),
+        (4, 32, 32, 40, 8, 128, torch.bfloat16, True, None),
+        (1, 1088, 1088, 28, 4, 128, torch.bfloat16, True, None),
+        *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
-        (2, 100, 100, 4, 2, 16, torch.float32, True),
-        (2, 40, 100, 4, 2, 8, torch.float32, True),
+        (2, 100, 100, 4, 2, 16, torch.float32, True, None),
+        (2, 40, 100, 4, 2, 8, torch.float32, True, None),
     ]:
         if not wanted("flash_attn"):
             break
@@ -595,12 +629,23 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         # (row, col) score pairs this input needs: all, or col <= row under the mask
         pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
         esize = q.element_size()
+        unpadded = None
+        if mla is not None:  # the columns past the true head dims are the padding's zeros
+            hq, hv = mla
+            q[..., hq:] = 0
+            k[..., hq:] = 0
+            v[..., hv:] = 0
+            scale = 1.0 / np.sqrt(hq)
+            # the unpadded work: q.k over hq, p.v over hv
+            unpadded = (esize * (B * S * H * hq + B * T * hkv * (hq + hv)) + 4 * B * S * H * hv,
+                        2 * B * H * pairs * (hq + hv))
         route = flash.route(dtype, hd)
         before = flash.attention.wgmma_launches
         check(
             "flash_attn",
             f"B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{str(dtype)[6:]},"
-            + ("causal" if causal else "full") + f",{route}",
+            + ("causal" if causal else "full") + f",{route}"
+            + ("" if mla is None else f",MLA {mla[0]}/{mla[1]} padded"),
             lambda: flash.attention(q, k, v, scale, causal=causal),
             lambda: flash.attention_plain(q, k, v, scale, causal=causal),
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -610,7 +655,7 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
             esize * (B * S * H * hd + 2 * B * T * hkv * hd) + 4 * B * S * H * hd,
             4 * B * H * hd * pairs,
             PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
-            iters=10 if S * T > 1 << 20 else 50,
+            iters=10 if S * T > 1 << 20 else 50, unpadded=unpadded,
         )
         require((flash.attention.wgmma_launches > before) == (route == "wgmma"),
                 f"flash_attn at hd={hd}, {dtype} did not take the {route} route")
@@ -1551,53 +1596,11 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 4) -> dict:
-    """One model on ``dev`` and on the CPU, from weights drawn on the CPU: a
-    prefill and ``steps`` greedy decode steps, the device teacher-forced with
-    the CPU's tokens.  Returns the relative logit error and the tokens compared."""
-    import torch
-
-    from repro_torch.models.param import init_params
-    from repro_torch.models.registry import get_model
-
-    api = get_model(cfg)
-    cpu = torch.device("cpu")
-    t0 = time.perf_counter()
-    tree = init_params(api.param_specs(), seed=0, device=cpu)
-    models = [(cpu, api.load(tree)), (dev, api.load(tree).to(dev))]
-    del tree
-    rng = np.random.default_rng(13)
-    toks = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
-    s_max = prompt_len + steps
-    runs = []  # per run: logits of each step, (B, V) f32 on the CPU
-    for d, model in models:
-        out, cache = api.prefill(model, torch.as_tensor(toks, device=d), s_max)
-        seq = [out[:, -1].float().cpu()]
-        for t in range(steps):
-            fed = (runs[0] if runs else seq)[t].argmax(-1)  # the CPU's greedy token
-            batch_in = {"tokens": fed.to(torch.int32)[:, None].to(d),
-                        "pos": torch.full((batch,), prompt_len + t, dtype=torch.int32, device=d)}
-            out, cache = api.decode(model, cache, batch_in)
-            seq.append(out[:, 0].float().cpu())
-        _sync(d)
-        runs.append(seq)
-    want, got = torch.stack(runs[0]), torch.stack(runs[1])  # (steps+1, B, V)
-    require(bool(torch.isfinite(got).all()), "device logits are not finite")
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    top2 = want.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
-    same = got.argmax(-1) == want.argmax(-1)
-    require(bool(same[decided].all()),
-            f"greedy tokens differ where the CPU's margin is above {2 * err:.4g}")
-    return dict(rel=rel, err=err, compared=int(decided.sum()), tokens=int(decided.numel()),
-                seconds=time.perf_counter() - t0)
-
-
 @contextlib.contextmanager
-def engine_probe(dev):
+def engine_probe(dev, keep_engine: bool = False):
     """Time every prefill and decode call of ``Engine`` (synchronized) and
-    check that its logits are finite; restores the engine on exit."""
+    check that its logits are finite; restores the engine on exit.  With
+    ``keep_engine``, ``rec["engine"]`` holds the engine last called."""
     import torch
 
     from repro_torch.serve.engine import Engine
@@ -1607,6 +1610,8 @@ def engine_probe(dev):
 
     def timed(fn, key):
         def call(self, *args):
+            if keep_engine:
+                rec["engine"] = self
             _sync(dev)
             t0 = time.perf_counter()
             logits, cache = fn(self, *args)
@@ -1736,6 +1741,371 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
     return launches
 
 
+# the lm_families phase: (arch, layers in the card-vs-CPU check, layers served);
+# a depth is cut only where the f32 draw and its bf16 copy would not fit in 80 GB
+LM_FAMILIES = [
+    ("llama4_scout_17b_a16e", 1, 4),
+    ("moonshot_v1_16b_a3b", 2, 12),
+    ("minicpm3_4b", 2, 62),
+    ("qwen2_vl_7b", 2, 28),
+    ("falcon_mamba_7b", 2, 64),
+]
+LM_REL_TOL = 2e-2
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _models_on_both(dev, api):
+    """The model on ``dev`` and on the CPU from one draw of its weights
+    (``init_params`` seed 0 on ``dev``, copied to the CPU)."""
+    import torch
+
+    from repro_torch.models.param import init_params
+
+    tree = init_params(api.param_specs(), seed=0, device=dev)
+    card = api.load(tree)
+    host = api.load(_tree_to(tree, torch.device("cpu")))
+    del tree
+    return card, host
+
+
+@contextlib.contextmanager
+def routing_probe(replay: list | None = None):
+    """Record every MoE routing call (router logits, probabilities, experts,
+    kept mask and queue positions, on the CPU).  With ``replay``, the calls
+    of another run, each call routes as that run's did: its experts, kept
+    choices and queue slots, gated by this run's own probabilities (the
+    record still holds this run's own choices)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    calls = []
+    original = moe.route
+
+    def route(cfg, router, xt):
+        probs, idx, gate, within = original(cfg, router, xt)
+        logits = torch.matmul(xt.float(), router.float())
+        calls.append(dict(logits=logits.cpu(), probs=probs.cpu(), idx=idx.cpu(),
+                          kept=(gate > 0).cpu(), within=within.cpu()))
+        if replay is not None:
+            other = replay[len(calls) - 1]
+            idx = other["idx"].to(xt.device)
+            within = other["within"].to(xt.device)
+            gate = probs.gather(-1, idx)
+            if cfg.experts_per_token > 1:
+                gate = gate / gate.sum(dim=-1, keepdim=True)
+            gate = gate * other["kept"].to(xt.device)
+        return probs, idx, gate, within
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = original
+
+
+def _routing_agreement(ref_calls, got_calls, cfg, batch, prompt_len, steps):
+    """Compare the CPU's and the card's routing call by call.  A (token,
+    layer) set agrees when its experts and its kept experts are equal.
+    Every set whose experts differ must have a CPU margin (k-th minus
+    (k+1)-th probability) below that call's largest router-logit error.
+    Returns (agreeing sets, sets, for each step's logits (steps + 1, B)
+    whether the token they come from agreed at every layer (the prompt's
+    last token for the prefill, the fed token for a decode step), and the
+    largest router-logit error)."""
+    import torch
+
+    L, K = cfg.n_layers, cfg.experts_per_token
+    require(len(ref_calls) == len(got_calls) == L * (1 + steps),
+            f"{len(ref_calls)} and {len(got_calls)} routing calls, expected {L * (1 + steps)}")
+    rows_ok = torch.ones((steps + 1, batch), dtype=torch.bool)
+    agree = total = 0
+    worst = 0.0
+    for i, (r, g) in enumerate(zip(ref_calls, got_calls)):
+        step = i // L
+        err = float((g["logits"] - r["logits"]).abs().max())
+        worst = max(worst, err)
+        r_idx, g_idx = r["idx"].sort(-1).values, g["idx"].sort(-1).values
+        same_experts = (r_idx == g_idx).all(-1)
+        top = r["probs"].sort(-1, descending=True).values
+        margin = top[..., K - 1] - top[..., K]
+        bad = ~same_experts & (margin >= err)
+        require(not bool(bad.any()),
+                f"routing call {i}: {int(bad.sum())} (token, layer) sets differ with a CPU "
+                f"margin at or above the router-logit error {err:.3g}")
+        kept_r = torch.zeros(r["probs"].shape, dtype=torch.bool).scatter(-1, r["idx"], r["kept"])
+        kept_g = torch.zeros(g["probs"].shape, dtype=torch.bool).scatter(-1, g["idx"], g["kept"])
+        same = same_experts & (kept_r == kept_g).all(-1)
+        agree += int(same.sum())
+        total += same.numel()
+        tokens = same.reshape(batch, -1)  # prefill: (B, S) tokens; decode: (B, 1)
+        rows_ok[step] &= tokens[:, -1]
+    return agree, total, rows_ok, worst
+
+
+def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 4) -> dict:
+    """One configuration on ``dev`` and on the CPU from the same weights: a
+    prefill and ``steps`` greedy decode steps on the card, then the same on
+    the CPU teacher-forced with the card's tokens.  For MoE the CPU run also
+    takes the card's routing (experts, drops, slots; its own gates), so that
+    one token routed the other way does not move every token it is mixed
+    with; the CPU's own choices are recorded and compared set by set, and
+    the logit check runs over the tokens whose own routing agreed at every
+    layer.  Returns the relative logit error and counts."""
+    import torch
+
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card, host = _models_on_both(dev, api)
+    rng = np.random.default_rng(13)
+    toks = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
+    s_max = prompt_len + steps
+    runs, routes = [], []
+    for d, model in [(dev, card), (cpu, host)]:
+        with routing_probe(replay=routes[0] if routes else None) as calls:
+            out, cache = api.prefill(model, torch.as_tensor(toks, device=d), s_max)
+            seq = [out[:, -1].float().cpu()]
+            for t in range(steps):
+                fed = (runs[0] if runs else seq)[t].argmax(-1)  # the card's greedy token
+                batch_in = {"tokens": fed.to(torch.int32)[:, None].to(d),
+                            "pos": torch.full((batch,), prompt_len + t, dtype=torch.int32,
+                                              device=d)}
+                out, cache = api.decode(model, cache, batch_in)
+                seq.append(out[:, 0].float().cpu())
+            _sync(d)
+        runs.append(seq)
+        routes.append(calls)
+    del card, host, cache
+    got, want = torch.stack(runs[0]), torch.stack(runs[1])  # (steps+1, B, V)
+    require(bool(torch.isfinite(got).all()), "device logits are not finite")
+    res = {}
+    rows = torch.ones(want.shape[:2], dtype=torch.bool)
+    if cfg.n_experts:
+        res["sets_agree"], res["sets"], rows, res["router_err"] = _routing_agreement(
+            routes[1], routes[0], cfg, batch, prompt_len, steps)
+        require(bool(rows.any()), "no token's routing agreed at every layer")
+    res["rows"] = int(rows.sum())
+    err = float((got - want).abs()[rows].max())
+    res["err"], res["rel"] = err, err / float(want.abs()[rows].max())
+    top2 = want.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > 2 * err) & rows
+    same = got.argmax(-1) == want.argmax(-1)
+    require(bool(same[decided].all()),
+            f"greedy tokens differ where the CPU's margin is above {2 * err:.4g}")
+    res["compared"], res["tokens"] = int(decided.sum()), int(rows.sum())
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _logits_rel(want_h, got_h, api_mod, cfg, models, every: int) -> tuple[float, float]:
+    """Relative max error of the hidden states, and of the logits at every
+    ``every``-th position (each package's own LM head on its own hidden)."""
+    import torch
+
+    err_h = float((got_h.float().cpu() - want_h.float()).abs().max()) / float(
+        want_h.float().abs().max())
+    lw = api_mod.logits_of(cfg, models[0], want_h[:, ::every])
+    lg = api_mod.logits_of(cfg, models[1], got_h[:, ::every]).cpu()
+    require(bool(torch.isfinite(lg).all()), "device logits are not finite")
+    return err_h, float((lg - lw).abs().max()) / float(lw.abs().max())
+
+
+def vlm_forward_card_vs_cpu(dev, cfg, text: int = 32) -> dict:
+    """``forward_train`` with ``cfg.vision_patches`` patches (a square grid
+    of one frame) between two runs of ``text`` tokens, M-RoPE streams as
+    Qwen2-VL lays them out: text (i, i, i); patches (t0, t0 + row, t0 + col);
+    the text after resumes at the largest position + 1."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    card, host = _models_on_both(dev, api)
+    P = cfg.vision_patches
+    side = int(round(P ** 0.5))
+    require(side * side == P, f"{P} patches do not form a square grid")
+    S = text + P + text
+    rng = np.random.default_rng(17)
+    toks = rng.integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
+    grid = np.arange(P)
+    pos3 = np.zeros((3, 1, S), np.int32)
+    pos3[:, 0, :text] = np.arange(text)
+    pos3[0, 0, text:text + P] = text
+    pos3[1, 0, text:text + P] = text + grid // side
+    pos3[2, 0, text:text + P] = text + grid % side
+    nxt = pos3[:, 0, :text + P].max() + 1
+    pos3[:, 0, text + P:] = nxt + np.arange(text)
+    extra = dict(vision_embeds=rng.normal(0, 0.3, (1, P, cfg.vision_dim)).astype(np.float32),
+                 vision_pos=(text + grid)[None].astype(np.int32))
+    hidden = []
+    for d, model in [(torch.device("cpu"), host), (dev, card)]:
+        h, _ = transformer.forward_train(
+            cfg, model, torch.as_tensor(toks, device=d), torch.as_tensor(pos3, device=d),
+            {k: torch.as_tensor(v, device=d) for k, v in extra.items()})
+        hidden.append(h)
+    rel_h, rel = _logits_rel(hidden[0], hidden[1], transformer, cfg, (host, card), every=17)
+    return dict(S=S, rel_h=rel_h, rel=rel, seconds=time.perf_counter() - t0)
+
+
+def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
+    """The SSM's chunked ``forward_train`` (chunks of 128) on the card and the CPU."""
+    import torch
+
+    from repro_torch.models import ssm_lm
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    card, host = _models_on_both(dev, api)
+    toks = np.random.default_rng(19).integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
+    hidden = [ssm_lm.forward_train(cfg, m, torch.as_tensor(toks, device=d))
+              for d, m in [(torch.device("cpu"), host), (dev, card)]]
+    rel_h, rel = _logits_rel(hidden[0], hidden[1], ssm_lm, cfg, (host, card), every=16)
+    return dict(S=S, rel_h=rel_h, rel=rel, seconds=time.perf_counter() - t0)
+
+
+def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 0) -> dict:
+    """``launch.serve.main`` for ``arch`` at ``layers`` layers: 4 requests of
+    32 tokens in a batch of 4, ``max_new`` tokens each; then, with
+    ``long_len``, one prompt of that length through an ``Engine`` of batch 1
+    over the same weights.  The counters are set to 0 before and read after;
+    the busy share comes from one more run of the batch (not counted)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Engine
+
+    out = {}
+    argv = ["--arch", arch, "--layers", str(layers), "--requests", "4", "--batch", "4",
+            "--prompt-len", "32", "--max-new", str(max_new), "--s-max", str(32 + max_new),
+            "--device", str(dev)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    with engine_probe(dev, keep_engine=True) as rec:
+        t0 = time.perf_counter()
+        outs = serve.main(argv)
+        out["requests_s"] = time.perf_counter() - t0
+    require(rec["finite"], f"{arch}: serving gave logits that are not finite")
+    require([len(o) for o in outs] == [max_new] * 4,
+            f"{arch}: not every request got {max_new} tokens")
+    engine = rec.pop("engine")
+    out["requests"] = rec
+    if long_len:
+        long_engine = Engine(engine.api, engine.params, 1, long_len + max_new, device=dev)
+        prompt = np.random.default_rng(1).integers(
+            1, engine.api.cfg.vocab_size - 1, long_len).astype(np.int32)
+        with engine_probe(dev) as lrec:
+            long_out = long_engine.generate([prompt], max_new=max_new)
+        del long_engine
+        require(lrec["finite"] and [len(o) for o in long_out] == [max_new],
+                f"{arch}: the long prompt failed")
+        out["long"] = lrec
+    out["launches"] = _read_counts()
+    out["wgmma_launches"] = _wrappers()["flash_attn"].wgmma_launches
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    requests = np.random.default_rng(0).integers(1, engine.api.cfg.vocab_size - 1, (4, 32),
+                                                 np.int32)
+    out["busy"] = _device_busy(dev, lambda: engine.generate(list(requests), max_new))
+    del engine
+    return out
+
+
+def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
+    """The MoE, MLA, VLM and SSM families at full width: each against the
+    CPU at a cut depth, then served through ``launch.serve.main``.  Returns
+    the launch counts of the serving parts."""
+    from repro_torch.configs.base import get_config
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    for arch, cmp_layers, serve_layers in LM_FAMILIES:
+        _free(dev)
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=cmp_layers)
+        cmp = lm_card_vs_cpu(dev, cfg)
+        routing = (f"; routing sets equal {cmp['sets_agree']} of {cmp['sets']} (token, layer), "
+                   f"router-logit error up to {cmp['router_err']:.3g}, "
+                   f"logits compared on {cmp['rows']} of {4 * 5} tokens"
+                   if full.n_experts else "")
+        log(f"[lm_families] {full.name} at {cmp_layers} of {full.n_layers} layers, card vs CPU: "
+            f"max |dlogit| {cmp['err']:.4g}, relative {cmp['rel']:.3g} (limit {LM_REL_TOL})"
+            f"{routing}; greedy tokens compared {cmp['compared']} of {cmp['tokens']}, all equal "
+            f"({cmp['seconds']:.1f} s)")
+        require(cmp["rel"] <= LM_REL_TOL,
+                f"{arch}: card vs CPU logits differ by {cmp['rel']:.3g} > {LM_REL_TOL}")
+        require(cmp["compared"] >= 1, f"{arch}: no greedy token was clear enough to compare")
+        _free(dev)
+        if full.vision_dim:
+            fw = vlm_forward_card_vs_cpu(dev, dataclasses.replace(full, n_layers=1))
+        elif full.family == "ssm":
+            fw = ssm_forward_card_vs_cpu(dev, cfg)
+        else:
+            fw = None
+        if fw is not None:
+            log(f"[lm_families] {full.name} forward_train, card vs CPU at "
+                f"{1 if full.vision_dim else cmp_layers} layer(s), B=1, S={fw['S']}"
+                + (f" ({full.vision_patches} vision patches of {full.vision_dim}, distinct "
+                   f"M-RoPE streams)" if full.vision_dim else " (chunks of 128)")
+                + f": hidden relative {fw['rel_h']:.3g}, logits relative {fw['rel']:.3g} "
+                f"({fw['seconds']:.1f} s)")
+            require(fw["rel"] <= LM_REL_TOL and fw["rel_h"] <= LM_REL_TOL,
+                    f"{arch}: forward_train card vs CPU beyond {LM_REL_TOL}")
+            _free(dev)
+
+        long = long_len if full.mla else 0
+        res = family_serve(dev, arch, serve_layers, max_new, long)
+        launches = res["launches"]
+        prefills = 1 + bool(long)
+        want = 0 if full.family == "ssm" else serve_layers * prefills
+        require(launches["flash_attn"] == want,
+                f"{arch}: flash_attn launched {launches['flash_attn']} times, expected {want}")
+        require(res["wgmma_launches"] == want,
+                f"{arch}: {res['wgmma_launches']} of {want} flash_attn launches took the "
+                f"tensor-core route")
+        req = res["requests"]
+        dec = float(np.median(req["decode_ms"]))
+        log(f"[lm_families] {full.name} served at {serve_layers} of {full.n_layers} layers "
+            f"(launch.serve.main, 4 x 32 tokens, batch 4, {max_new} new): prefill "
+            f"{req['prefill_ms'][0]:.2f} ms ({4 * 32 / req['prefill_ms'][0] * 1e3:.0f} tokens/s), "
+            f"decode {dec:.2f} ms a step ({4e3 / dec:.1f} tokens/s); wall {res['requests_s']:.2f} s "
+            f"with the weights' draw; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device "
+            f"busy {res['busy']}; flash_attn {launches['flash_attn']} (tensor cores "
+            f"{res['wgmma_launches']})")
+        if long:
+            lng = res["long"]
+            ldec = float(np.median(lng["decode_ms"]))
+            log(f"[lm_families] {full.name} long prompt: {long} tokens, prefill "
+                f"{lng['prefill_ms'][0]:.1f} ms ({long / lng['prefill_ms'][0] * 1e3:.0f} "
+                f"tokens/s), decode {ldec:.2f} ms a token")
+        _count_into(total, launches)
+        del res
+    _free(dev)
+    log(f"[lm_families] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     """Where the matcher's time goes: the first ``max_evals`` MMP evaluations
     (cover excluded) once more under torch.profiler, device activity only;
@@ -1777,6 +2147,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="stop after phase 2 (build and kernels); prints no result line")
     ap.add_argument("--only", type=lambda v: v.split(","), metavar="KERNEL[,KERNEL]",
                     help="with --kernels-only: phase 2 for these kernels alone")
+    ap.add_argument("--lm-families-only", action="store_true",
+                    help="build, phase 2 for flash_attn, then phase lm_families alone; "
+                         "prints no result line")
     ap.add_argument("--crash-worker", metavar="DIR",
                     help="the serving phase's worker: serve into DIR and die at the armed "
                          "fault (exit 117); prints no result line")
@@ -1809,6 +2182,10 @@ def main(argv: list[str] | None = None) -> int:
     phase_build(args.ptxas_verbose)
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
+    if args.lm_families_only:
+        phase_kernels(dev, ["flash_attn"])
+        phase_lm_families(dev)
+        return 0
     rows = phase_kernels(dev, args.only)
     if args.kernels_only:
         return 0
@@ -1820,6 +2197,7 @@ def main(argv: list[str] | None = None) -> int:
     serving_launches = phase_serving(dev)
     shard_launches = phase_shard(dev)
     lm_launches = phase_lm(dev)
+    families_launches = phase_lm_families(dev)
     phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
@@ -1839,13 +2217,15 @@ def main(argv: list[str] | None = None) -> int:
             replaces=meta["replaces"],
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
                       + stream_launches[name] + matchers_launches[name]
-                      + serving_launches[name] + shard_launches[name] + lm_launches[name]),
+                      + serving_launches[name] + shard_launches[name] + lm_launches[name]
+                      + families_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
                               "matchers": matchers_launches[name],
                               "serving": serving_launches[name],
-                              "shard": shard_launches[name], "lm": lm_launches[name]},
+                              "shard": shard_launches[name], "lm": lm_launches[name],
+                              "lm_families": families_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

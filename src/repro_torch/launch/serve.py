@@ -4,7 +4,11 @@ Random-weight serving driver around :class:`repro_torch.serve.engine.Engine`:
 ``--requests`` prompts of ``--prompt-len`` random tokens, served in
 batches of ``--batch`` with ``--max-new`` greedy tokens each.  It runs on
 CUDA unless ``--device cpu`` is given; the first prefill builds the
-CUDA kernels.  ``--smoke`` serves the architecture's reduced config.
+CUDA kernels.  ``--smoke`` serves the architecture's reduced config;
+``--layers N`` keeps the config's widths and serves its first N layers
+(a depth cut, where the full model's weights do not fit the card).  The
+dense, MoE, MLA, VLM (text prompts) and SSM families serve; the hybrid
+and encoder-decoder families raise ``NotImplementedError``.
 
 ``--em`` switches to the sharded entity-resolution service instead: one
 :class:`repro_torch.stream.shard.ShardCoordinator` replica a process.
@@ -71,6 +75,8 @@ def main(argv=None) -> list[list[int]] | str:
     if "--em" in argv:
         return em_main(argv)
 
+    import dataclasses
+
     from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import demo_engine
@@ -78,6 +84,8 @@ def main(argv=None) -> list[list[int]] | str:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first N layers (default: all of the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--s-max", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -87,6 +95,8 @@ def main(argv=None) -> list[list[int]] | str:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = get_model(cfg)
     engine = demo_engine(api, batch=args.batch, s_max=args.s_max, device=args.device)
 

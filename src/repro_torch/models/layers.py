@@ -1,4 +1,5 @@
-"""Transformer building blocks of the dense family (bf16 compute).
+"""Transformer building blocks (bf16 compute): GQA and MLA attention, RoPE
+and M-RoPE, the MLP.
 
 Conventions, the reference's (``repro.models.layers``):
   * parameters are read as ``p[name]``, from a plain dict of tensors or
@@ -19,7 +20,9 @@ them (``ROADMAP.md`` Queue 1 items 10 and 11).
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +33,12 @@ from repro_torch.models.param import PSpec
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e9
+
+# CPU tensors longer than this take the query-block-chunked plain path
+# (a (q_block, T) score tile live at a time instead of (S, T)); CUDA
+# tensors always take the flash kernel.
+ATTN_CHUNK_THRESHOLD = int(os.environ.get("REPRO_ATTN_CHUNK_THRESHOLD", 4096))
+ATTN_Q_BLOCK = int(os.environ.get("REPRO_ATTN_Q_BLOCK", 1024))
 
 
 def mp(x):
@@ -76,7 +85,7 @@ def unembed(table, x):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -89,6 +98,29 @@ def rope(x, positions, theta: float):
     freqs = _rope_freqs(x.shape[-1], theta, x.device)  # (hd/2,)
     ang = positions[..., None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(half: int, sections: tuple[int, int, int], device) -> torch.Tensor:
+    """The position stream of each of the ``half`` frequency channels, made
+    once a device (no host-to-device copy a call)."""
+    bounds = torch.cumsum(torch.tensor(sections), 0)
+    return torch.searchsorted(bounds, torch.arange(half), right=True).clamp(0, 2).to(device)
+
+
+def mrope(x, positions3, theta: float, sections: tuple[int, int, int]):
+    """Multimodal RoPE (Qwen2-VL): positions3 (3, B, S) are the temporal,
+    height and width position ids; the frequency channels are split into
+    three sections, each rotated by its own position stream."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)  # (hd/2,)
+    which = _mrope_streams(hd // 2, tuple(sections), x.device)  # (hd/2,)
+    pos = positions3[which].movedim(0, -1).float()  # (B, S, hd/2): per-channel stream
+    ang = pos * freqs
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
@@ -131,20 +163,73 @@ def _apply_rope(cfg: ModelConfig, q, k, positions):
     if not cfg.use_rope:
         return q, k
     if cfg.mrope:
-        raise unported("M-RoPE (the VLM family)")
+        secs = cfg.mrope_sections
+        return mrope(q, positions, cfg.rope_theta, secs), mrope(k, positions, cfg.rope_theta, secs)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
 
 
+def chunked_attention(q, k, v, scale, *, causal=True, q_block: int | None = None,
+                      out_dtype=None):
+    """Query-block-chunked exact attention, the long-sequence plain path.
+
+    q (B,S,H,hq), k (B,T,Hkv,hq), v (B,T,Hkv,hv) -> (B,S,H*hv).  Each
+    query block takes its full-row softmax against all T keys, so the
+    result is the unchunked one; only a (q_block, T) score tile is live.
+    """
+    B, S, H, hq = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    hv = v.shape[-1]
+    out_dtype = out_dtype or v.dtype
+    qb = min(q_block or ATTN_Q_BLOCK, S)
+    nb = S // qb
+    assert nb * qb == S, f"seq {S} not divisible by q_block {qb}"
+    rows0 = torch.arange(qb, device=q.device)
+    cols = torch.arange(T, device=q.device)
+    out = []
+    for blk in range(nb):
+        qblk = q[:, blk * qb:(blk + 1) * qb].reshape(B, qb, hkv, g, hq)
+        s = mixed_einsum("bskgh,btkh->bkgst", qblk, k) * scale
+        if causal:
+            m = (blk * qb + rows0)[:, None] >= cols[None, :]
+            s = torch.where(m, s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o = mixed_einsum("bkgst,btkh->bskgh", pr.to(v.dtype), v)
+        out.append(o.reshape(B, qb, H * hv).to(out_dtype))
+    return torch.cat(out, dim=1)
+
+
+def attend(q, k, v, scale, out_dtype, *, causal: bool = True):
+    """Full-sequence attention, q (B,S,H,hq), k (B,T,Hkv,hq), v (B,T,Hkv,hv)
+    -> (B,S,H*hv) in ``out_dtype``: the ``flash_attn`` kernel (its plain
+    version on CPU tensors), or :func:`chunked_attention` on CPU tensors
+    longer than ``ATTN_CHUNK_THRESHOLD``.
+
+    The kernel takes one head dim from ``flash.HEAD_DIMS`` for q, k and v.
+    Other dims (MLA's 96 for q.k and 64 for v) are zero-padded to the
+    smallest one that holds both, which leaves q.k unchanged; each head's
+    first ``hv`` output columns are kept.
+    """
+    S, hq, hv = q.shape[1], q.shape[-1], v.shape[-1]
+    if q.device.type == "cpu" and S > ATTN_CHUNK_THRESHOLD:
+        return chunked_attention(q, k, v, scale, causal=causal, out_dtype=out_dtype)
+    if hq == hv and hq in flash.HEAD_DIMS:
+        return flash.attention(q, k, v, scale, causal=causal).to(out_dtype)
+    hd = min(d for d in flash.HEAD_DIMS if d >= max(hq, hv))
+    q, k, v = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+    o = flash.attention(q, k, v, scale, causal=causal)
+    B, H = o.shape[0], q.shape[2]
+    return o.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv).to(out_dtype)
+
+
 def _attend(cfg: ModelConfig, p, q, k, v, out_dtype, *, causal: bool = True):
-    """The flash kernel over rotated q/k and v, then the output projection."""
-    o = flash.attention(q, k, v, 1.0 / math.sqrt(cfg.head_dim), causal=causal)
-    return torch.matmul(o.to(out_dtype), mp(p["wo"]))
+    """Attention over rotated q/k and v, then the output projection."""
+    o = attend(q, k, v, 1.0 / math.sqrt(cfg.head_dim), out_dtype, causal=causal)
+    return torch.matmul(o, mp(p["wo"]))
 
 
 def attention_train(cfg: ModelConfig, p, x, positions, *, causal: bool = True):
-    """Full-sequence attention. x (B,S,D) bf16, positions (B,S)."""
-    if cfg.mla:
-        raise unported("MLA attention")
+    """Full-sequence attention. x (B,S,D) bf16, positions (B,S) or (3,B,S)."""
     q, k, v = _qkv(cfg, p, x)
     q, k = _apply_rope(cfg, q, k, positions)
     return _attend(cfg, p, q, k, v, x.dtype, causal=causal)
@@ -166,6 +251,14 @@ def attention_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
     }
 
 
+def decode_positions(cfg: ModelConfig, pos):
+    """The rotary positions of one decode step: (B, 1), or for M-RoPE the
+    same position in all three streams, (3, B, 1)."""
+    if cfg.mrope:
+        return pos[None, :, None].expand(3, pos.shape[0], 1)
+    return pos[:, None]
+
+
 def attention_decode(cfg: ModelConfig, p, x, cache, pos):
     """Single-token decode. x (B,1,D), cache {k,v} (B,Hkv,S,hd), pos (B,).
 
@@ -174,12 +267,10 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos):
     clamped into range), but in place: the returned cache is the given
     one.  The scores and the PV product are f32 over upcast operands.
     """
-    if cfg.mla:
-        raise unported("MLA attention")
     B = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, x)  # (B,1,.,hd)
-    q, k = _apply_rope(cfg, q, k, pos[:, None])
+    q, k = _apply_rope(cfg, q, k, decode_positions(cfg, pos))
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[2]
     at = pos[:1].long().clamp(0, S - 1)
@@ -194,6 +285,112 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos):
     probs = torch.softmax(scores, dim=-1)
     o = mixed_einsum("bkgst,bkth->bskgh", probs.to(vc.dtype), vc)
     o = o.reshape(B, 1, h * hd).to(x.dtype)
+    return torch.matmul(o, mp(p["wo"])), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "q_down": PSpec((d, qr), (None, None)),
+        "q_norm": rmsnorm_spec(qr),
+        "q_up": PSpec((qr, h * (dn + dr)), (None, "model")),
+        "kv_down": PSpec((d, kr + dr), (None, None)),
+        "kv_norm": rmsnorm_spec(kr),
+        "kv_up": PSpec((kr, h * (dn + dv)), (None, "model")),
+        "wo": PSpec((h * dv, d), ("model", None)),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p, x):
+    """The query's no-rope and rope parts, (B,S,h,dn) and (B,S,h,dr), unrotated."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = rmsnorm(p["q_norm"], torch.matmul(x, mp(p["q_down"])), cfg.norm_eps)
+    q = torch.matmul(ql, mp(p["q_up"])).reshape(B, S, cfg.n_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_latent(cfg: ModelConfig, p, x, positions):
+    """The normed latent c_kv (B,S,kr) and the rotated rope key (B,S,dr):
+    what the decode cache holds."""
+    kr = cfg.kv_lora_rank
+    kv = torch.matmul(x, mp(p["kv_down"]))
+    c_kv = rmsnorm(p["kv_norm"], kv[..., :kr], cfg.norm_eps)
+    k_rope = rope(kv[..., kr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attend(cfg: ModelConfig, p, x, positions):
+    """Full-sequence MLA. Returns (out (B,S,D), c_kv, k_rope); the latent
+    and the rope key are the prefill's cache entries."""
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(cfg, p, x)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    kvu = torch.matmul(c_kv, mp(p["kv_up"])).reshape(B, S, h, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
+    q = torch.cat([q_nope, rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)], dim=-1)
+    o = attend(q, k, v, 1.0 / math.sqrt(dn + dr), x.dtype)
+    return torch.matmul(o, mp(p["wo"])), c_kv, k_rope
+
+
+def mla_train(cfg: ModelConfig, p, x, positions):
+    return mla_attend(cfg, p, x, positions)[0]
+
+
+def mla_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
+    """MLA caches the compressed latent and the rope key: kv_lora_rank +
+    qk_rope_dim values a token instead of 2 * n_heads * head_dim."""
+    seq = ("data", "model") if batch == 1 else "model"
+    b_ax = None if batch == 1 else "data"
+    return {
+        "c_kv": PSpec((batch, s_max, cfg.kv_lora_rank), (b_ax, seq, None),
+                      init="zeros", dtype=COMPUTE_DTYPE),
+        "k_rope": PSpec((batch, s_max, cfg.qk_rope_dim), (b_ax, seq, None),
+                        init="zeros", dtype=COMPUTE_DTYPE),
+    }
+
+
+def mla_decode(cfg: ModelConfig, p, x, cache, pos):
+    """Absorbed-projection MLA decode: attention runs in the latent space
+    (W_uk folded into q, W_uv applied after the probability-weighted
+    latent sum).  The new latent and rope key are written in place at
+    ``pos[0]``, clamped, as in :func:`attention_decode`."""
+    B = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(cfg, p, x)
+    q_rope = rope(q_rope, pos[:, None], cfg.rope_theta)
+    c_new, kr_new = _mla_latent(cfg, p, x, pos[:, None])
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    S = c_cache.shape[1]
+    at = pos[:1].long().clamp(0, S - 1)
+    c_cache.index_copy_(1, at, c_new.to(c_cache.dtype))
+    r_cache.index_copy_(1, at, kr_new.to(r_cache.dtype))
+
+    kv_up = p["kv_up"].reshape(kr, h, dn + dv)
+    w_uk = mp(kv_up[..., :dn])  # (kr, h, dn)
+    w_uv = mp(kv_up[..., dn:])  # (kr, h, dv)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (B,1,h,kr)
+    s_lat = mixed_einsum("bshr,btr->bhst", q_lat.to(c_cache.dtype), c_cache)
+    s_rope = mixed_einsum("bshd,btd->bhst", q_rope.to(r_cache.dtype), r_cache)
+    scores = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
+    tmask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    scores = torch.where(tmask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    lat = mixed_einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)  # (B,1,h,kr)
+    o = torch.einsum("bshr,rhd->bshd", lat, w_uv.float())
+    o = o.reshape(B, 1, h * dv).to(x.dtype)
     return torch.matmul(o, mp(p["wo"])), cache
 
 

@@ -7,6 +7,9 @@ Models declare their parameters as a tree (nested ``dict``) of
   ``torch.Generator`` per leaf;
 * ``param_count``  — the exact parameter count.
 
+A loaded model is a tree of :class:`Params` modules, read as ``p[name]``
+the way the layer functions read the reference's parameter dicts.
+
 ``PSpec.spec`` names the logical mesh axes of each dimension as a plain
 tuple (``("model", None)``); one device has no mesh, so nothing reads
 it yet.  The mesh and dry-run machinery of the reference
@@ -22,8 +25,14 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.kernels.common import resolve_device
+
+# Layer leaves the reference reads in f32, without its mp() cast: the MoE
+# router, MLA's q_norm and kv_norm scales, the SSM's A_log and D.  Rounding
+# them to bf16 would move expert choices and the recurrence.
+F32_LEAVES = frozenset({"router", "q_norm", "kv_norm", "A_log", "D"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +128,27 @@ def init_params(tree, seed: int = 0, device=None):
 
 def param_count(tree) -> int:
     return sum(ps.size for ps in leaves(tree))
+
+
+class Params(nn.Module):
+    """A module whose parameters and submodules also read as ``p[name]``."""
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def layer_group(stacked: dict, i: int) -> Params:
+    """Layer ``i``'s slice of a stacked parameter group.  Projections and
+    biases go to bf16 once, here (the reference keeps f32 masters and casts
+    them with mp() at every use, which gives the same numbers); the leaves
+    in ``F32_LEAVES`` stay f32, copied out of the stacked tensor."""
+    g = Params()
+    for name in sorted(stacked):
+        leaf = stacked[name][i]
+        leaf = leaf.float().clone() if name in F32_LEAVES else leaf.to(torch.bfloat16)
+        g.register_parameter(name, frozen(leaf))
+    return g

@@ -9,8 +9,11 @@
   * ``cache_specs(batch, s_max)``      — decode-state PSpec tree
   * ``input_specs(shape)``             — ``(shape, dtype)`` record per input
 
-The dense family is ported; the others raise ``NotImplementedError``
-(``ROADMAP.md`` Queue 1 item 10), and so does ``loss`` (item 11).
+The dense (MLA included), MoE, VLM and SSM families are ported; the
+hybrid and encoder-decoder families raise ``NotImplementedError``
+(``ROADMAP.md`` Queue 1 item 10), and so does ``loss`` (item 11).  The
+VLM's vision tower is a stub, as in the reference: its training inputs
+carry precomputed patch embeddings.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer
 from repro_torch.models.layers import unported
 
 
@@ -48,24 +51,32 @@ class ModelAPI:
 
     # -- inputs -----------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> dict[str, InputSpec]:
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
         if shape.kind == "decode":
-            return {
-                "tokens": InputSpec((B, 1), torch.int32),
-                "pos": InputSpec((B,), torch.int32),
-            }
-        return {
-            "tokens": InputSpec((B, S), torch.int32),
-            "labels": InputSpec((B, S), torch.int32),
-        }
+            return {"tokens": InputSpec((B, 1), i32), "pos": InputSpec((B,), i32)}
+        specs = {"tokens": InputSpec((B, S), i32), "labels": InputSpec((B, S), i32)}
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = InputSpec(
+                (B, cfg.vision_patches, cfg.vision_dim), torch.bfloat16)
+            specs["vision_pos"] = InputSpec((B, cfg.vision_patches), i32)
+            specs["positions"] = InputSpec((3, B, S), i32)
+        return specs
 
     def demo_batch(self, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
-        """Concrete random inputs matching input_specs (smoke tests)."""
+        """Concrete random inputs matching input_specs (smoke tests), drawn
+        in the reference's order from the same numpy generator."""
         rng = np.random.default_rng(seed)
         out = {}
         for name, spec in self.input_specs(shape).items():
-            if name == "pos":
+            if spec.dtype != torch.int32:
+                out[name] = rng.normal(0, 0.3, size=spec.shape).astype(np.float32)
+            elif name == "pos":
                 out[name] = np.zeros(spec.shape, np.int32)
+            elif name in ("positions", "vision_pos"):
+                out[name] = np.broadcast_to(
+                    np.arange(spec.shape[-1], dtype=np.int32), spec.shape).copy()
             else:
                 hi = max(self.cfg.vocab_size - 1, 2)
                 out[name] = rng.integers(1, hi, size=spec.shape, dtype=np.int32)
@@ -73,14 +84,20 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
-        raise unported(f"the {cfg.family} family")
-    transformer.check_dense(cfg)
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        mod = transformer
+    elif fam == "ssm":
+        mod = ssm_lm
+    elif fam in ("hybrid", "encdec"):
+        raise unported(f"the {fam} family")
+    else:
+        raise ValueError(f"unknown family {fam!r}")
     return ModelAPI(
         cfg=cfg,
-        param_specs=lambda: transformer.param_specs(cfg),
-        load=lambda tree: transformer.DecoderLM(cfg, tree),
-        decode=lambda params, cache, batch: transformer.decode_step(cfg, params, cache, batch),
-        cache_specs=lambda batch, s_max: transformer.cache_specs(cfg, batch, s_max),
-        prefill=lambda params, tokens, s_max: transformer.prefill(cfg, params, tokens, s_max),
+        param_specs=lambda: mod.param_specs(cfg),
+        load=lambda tree: mod.load(cfg, tree),
+        decode=lambda params, cache, batch: mod.decode_step(cfg, params, cache, batch),
+        cache_specs=lambda batch, s_max: mod.cache_specs(cfg, batch, s_max),
+        prefill=lambda params, tokens, s_max: mod.prefill(cfg, params, tokens, s_max),
     )

@@ -1,13 +1,14 @@
-"""Decoder-only transformer, dense family: forward, prefill, decode.
+"""Decoder-only transformer (dense / MoE / MLA / VLM): forward, prefill, decode.
 
 The model is a :class:`DecoderLM` module whose submodule and parameter
 names follow the reference's parameter tree (``embed``,
 ``layers.<i>.ln1``, ``layers.<i>.attn.wq``, ..., ``ln_f``,
-``lm_head``), so a state-dict key names its JAX leaf with the layer
-index split out of the stacked axis.  The reference's ``lax.scan`` over
-stacked layers is a Python loop here.  One module serves the dense
-configurations (Yi, Qwen2, Qwen1.5); the MoE, MLA and VLM variants of
-the reference's module raise ``NotImplementedError``.
+``lm_head``, ``vision_proj``), so a state-dict key names its JAX leaf
+with the layer index split out of the stacked axis.  The reference's
+``lax.scan`` over stacked layers is a Python loop here.  One module
+serves the dense (Yi, Qwen2, Qwen1.5), MLA (MiniCPM3), MoE (Moonshot,
+Llama-4 Scout) and VLM (Qwen2-VL: projected vision patches merged into
+the token stream, M-RoPE positions) families.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moelib
 from repro_torch.models.layers import (
     _apply_rope,
     _attend,
@@ -26,35 +28,27 @@ from repro_torch.models.layers import (
     attention_train,
     embed_lookup,
     embed_spec,
+    mla_attend,
+    mla_cache_specs,
+    mla_decode,
+    mla_specs,
     mlp,
     mlp_specs,
     mp,
     rmsnorm,
     rmsnorm_spec,
     unembed,
-    unported,
 )
-from repro_torch.models.param import spec_tree_map, stack
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for the variants of the reference's module that wait for later slices."""
-    if cfg.n_experts:
-        raise unported("the MoE family")
-    if cfg.mla:
-        raise unported("MLA attention")
-    if cfg.vision_dim or cfg.mrope:
-        raise unported("the VLM family")
+from repro_torch.models.param import Params, PSpec, frozen, layer_group, spec_tree_map, stack
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
-    check_dense(cfg)
     d = cfg.d_model
     return {
         "ln1": rmsnorm_spec(d),
-        "attn": attention_specs(cfg),
+        "attn": mla_specs(cfg) if cfg.mla else attention_specs(cfg),
         "ln2": rmsnorm_spec(d),
-        "ffn": mlp_specs(cfg),
+        "ffn": moelib.moe_specs(cfg) if cfg.n_experts else mlp_specs(cfg),
     }
 
 
@@ -64,69 +58,78 @@ def param_specs(cfg: ModelConfig) -> dict:
         "layers": stack(cfg.n_layers, layer_specs(cfg)),
         "ln_f": rmsnorm_spec(cfg.d_model),
     }
+    if cfg.vision_dim:
+        specs["vision_proj"] = PSpec((cfg.vision_dim, cfg.d_model), (None, "model"))
     if not cfg.tie_embeddings:
         specs["lm_head"] = embed_spec(cfg.vocab_size, cfg.d_model)
     return specs
 
 
-class Params(nn.Module):
-    """A module whose parameters and submodules also read as ``p[name]``,
-    the way the layer functions read the reference's parameter dicts."""
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-def _group(stacked: dict, i: int) -> Params:
-    # Projections and biases go to bf16 once, here; the reference keeps f32
-    # masters and casts them with mp() at every use, which gives the same numbers.
-    g = Params()
-    for name in sorted(stacked):
-        g.register_parameter(name, _param(mp(stacked[name][i])))
-    return g
-
-
 class DecoderLM(Params):
-    """The dense decoder's parameters, loaded from a reference-shaped tree
+    """The decoder's parameters, loaded from a reference-shaped tree
     (stacked layer axis first).  Norm scales, the embedding and the LM
-    head stay f32: ``rmsnorm`` and ``unembed`` read them in f32."""
+    head stay f32: ``rmsnorm`` and ``unembed`` read them in f32; so do the
+    layer leaves in ``param.F32_LEAVES``."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        check_dense(cfg)
         super().__init__()
         self.cfg = cfg
-        self.embed = _param(tree["embed"].float())
+        self.embed = frozen(tree["embed"].float())
         stacked = tree["layers"]
         layers = []
         for i in range(cfg.n_layers):
             layer = Params()
-            layer.ln1 = _param(stacked["ln1"][i].float())
-            layer.attn = _group(stacked["attn"], i)
-            layer.ln2 = _param(stacked["ln2"][i].float())
-            layer.ffn = _group(stacked["ffn"], i)
+            layer.ln1 = frozen(stacked["ln1"][i].float())
+            layer.attn = layer_group(stacked["attn"], i)
+            layer.ln2 = frozen(stacked["ln2"][i].float())
+            layer.ffn = layer_group(stacked["ffn"], i)
             layers.append(layer)
         self.layers = nn.ModuleList(layers)
-        self.ln_f = _param(tree["ln_f"].float())
+        self.ln_f = frozen(tree["ln_f"].float())
+        if cfg.vision_dim:
+            self.vision_proj = frozen(mp(tree["vision_proj"]))
         if not cfg.tie_embeddings:
-            self.lm_head = _param(tree["lm_head"].float())
+            self.lm_head = frozen(tree["lm_head"].float())
+
+
+def load(cfg: ModelConfig, tree: dict) -> DecoderLM:
+    return DecoderLM(cfg, tree)
+
+
+def _ffn(cfg: ModelConfig, p, x):
+    if cfg.n_experts:
+        return moelib.moe_ffn(cfg, p, x)
+    return mlp(cfg, p, x), torch.zeros((), device=x.device)
 
 
 def _layer_train(cfg: ModelConfig, p, x, positions):
-    x = x + attention_train(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions)
-    return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    normed = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla:
+        x = x + mla_attend(cfg, p["attn"], normed, positions)[0]
+    else:
+        x = x + attention_train(cfg, p["attn"], normed, positions)
+    f, aux = _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + f, aux
 
 
-def forward_train(cfg: ModelConfig, params, tokens, positions):
-    """Hidden states for a full sequence. Returns (hidden (B,S,D), aux); the
-    router's auxiliary loss is 0 in the dense family."""
+def forward_train(cfg: ModelConfig, params, tokens, positions, extra=None):
+    """Hidden states for a full sequence. Returns (hidden (B,S,D), aux), aux
+    the router's load-balance loss summed over the layers (0 without MoE).
+
+    ``extra`` (VLM): ``vision_embeds`` (B, P, vision_dim) projected by
+    ``vision_proj`` and written over the token embeddings at
+    ``vision_pos`` (B, P).
+    """
     x = embed_lookup(params["embed"], tokens)
+    if extra is not None and cfg.vision_dim:
+        vis = torch.matmul(mp(extra["vision_embeds"]), mp(params["vision_proj"]))
+        at = extra["vision_pos"].long()[..., None].expand(-1, -1, x.shape[-1])
+        x = x.scatter(1, at, vis)
+    aux = torch.zeros((), device=x.device)
     for lp in params["layers"]:
-        x = _layer_train(cfg, lp, x, positions)
-    return rmsnorm(params["ln_f"], x, cfg.norm_eps), torch.zeros((), device=x.device)
+        x, a = _layer_train(cfg, lp, x, positions)
+        aux = aux + a
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
 def logits_of(cfg: ModelConfig, params, hidden):
@@ -135,10 +138,11 @@ def logits_of(cfg: ModelConfig, params, hidden):
 
 
 def make_positions(cfg: ModelConfig, tokens):
-    if cfg.mrope:
-        raise unported("M-RoPE (the VLM family)")
+    """Positions 0..S-1 for every row: (B, S), or (3, B, S) for M-RoPE,
+    one stream repeated (text alone)."""
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    return pos.expand(3, B, S) if cfg.mrope else pos
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +151,9 @@ def make_positions(cfg: ModelConfig, tokens):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
-    check_dense(cfg)
-    return {"layers": stack(cfg.n_layers, attention_cache_specs(cfg, batch, s_max))}
+    per_layer = (mla_cache_specs(cfg, batch, s_max) if cfg.mla
+                 else attention_cache_specs(cfg, batch, s_max))
+    return {"layers": stack(cfg.n_layers, per_layer)}
 
 
 def _empty_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
@@ -158,20 +163,26 @@ def _empty_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
     )
 
 
+def _layer_cache(cache: dict, i: int) -> dict:
+    return {name: t[i] for name, t in cache["layers"].items()}
+
+
 def _layer_decode(cfg: ModelConfig, p, cache, x, pos):
-    a, cache = attention_decode(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cache, pos)
+    step = mla_decode if cfg.mla else attention_decode
+    a, cache = step(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cache, pos)
     x = x + a
-    return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps)), cache
+    f, _ = _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + f, cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch):
     """One-token decode. batch: tokens (B,1), pos (B,). Returns
-    (logits (B,1,V), cache); the cache is updated in place."""
+    (logits (B,1,V), cache); the cache is updated in place.  M-RoPE
+    rotates by ``pos`` in all three streams."""
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed_lookup(params["embed"], tokens)
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
     for i, lp in enumerate(params["layers"]):
-        x, _ = _layer_decode(cfg, lp, {"k": ks[i], "v": vs[i]}, x, pos)
+        x, _ = _layer_decode(cfg, lp, _layer_cache(cache, i), x, pos)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_of(cfg, params, x), cache
 
@@ -180,21 +191,29 @@ def prefill(cfg: ModelConfig, params, tokens, s_max: int):
     """Run the prompt through the stack, returning (last-position logits
     (B,1,V), cache).
 
-    Each layer's rotated K and V go into the cache; its attention runs
-    the flash kernel once, over the q/k/v it computed for the cache.
+    Each layer's attention runs the flash kernel once.  GQA layers cache
+    the rotated K and V they computed for it; MLA layers cache the normed
+    latent and the rotated rope key.
     """
     B, S = tokens.shape
     positions = make_positions(cfg, tokens)
     x = embed_lookup(params["embed"], tokens)
     cache = _empty_cache(cfg, B, s_max, x.device)
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
     for i, lp in enumerate(params["layers"]):
         normed = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(cfg, lp["attn"], normed)
-        q, k = _apply_rope(cfg, q, k, positions)
-        ks[i, :, :, :S] = k.transpose(1, 2)
-        vs[i, :, :, :S] = v.transpose(1, 2)
-        x = x + _attend(cfg, lp["attn"], q, k, v, x.dtype)
-        x = x + mlp(cfg, lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        entry = _layer_cache(cache, i)
+        if cfg.mla:
+            a, c_kv, k_rope = mla_attend(cfg, lp["attn"], normed, positions)
+            entry["c_kv"][:, :S] = c_kv
+            entry["k_rope"][:, :S] = k_rope
+        else:
+            q, k, v = _qkv(cfg, lp["attn"], normed)
+            q, k = _apply_rope(cfg, q, k, positions)
+            entry["k"][:, :, :S] = k.transpose(1, 2)
+            entry["v"][:, :, :S] = v.transpose(1, 2)
+            a = _attend(cfg, lp["attn"], q, k, v, x.dtype)
+        x = x + a
+        f, _ = _ffn(cfg, lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = x + f
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_of(cfg, params, x[:, -1:, :]), cache

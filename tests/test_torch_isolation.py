@@ -27,6 +27,7 @@ assert {{
     "repro_torch.core.matchers.embedding", "repro_torch.stream.serving",
     "repro_torch.stream.wal", "repro_torch.checkpoint.checkpointer",
     "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.stream.shard",
+    "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.models.ssm_lm",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -59,7 +60,8 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-# the modules of the matcher registry and of serving and durability
+# the modules of the matcher registry, of serving and durability, and of
+# the MoE and SSM model families
 NEW_MODULES = [
     "src/repro_torch/core/matchers/__init__.py",
     "src/repro_torch/core/matchers/assignment.py",
@@ -69,6 +71,9 @@ NEW_MODULES = [
     "src/repro_torch/checkpoint/__init__.py",
     "src/repro_torch/checkpoint/checkpointer.py",
     "src/repro_torch/obs/quality.py",
+    "src/repro_torch/models/moe.py",
+    "src/repro_torch/models/ssm.py",
+    "src/repro_torch/models/ssm_lm.py",
 ]
 
 

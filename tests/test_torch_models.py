@@ -30,6 +30,7 @@ from repro_torch.configs import base  # noqa: E402
 from repro_torch.models import layers, param, registry, transformer  # noqa: E402
 
 DENSE = ["yi_6b", "qwen1_5_0_5b", "qwen2_72b"]
+UNPORTED = ["jamba_v0_1_52b", "whisper_medium"]  # the hybrid and encdec families
 BF16 = dict(rtol=1e-2, atol=1e-2)
 LOGITS = dict(rtol=2e-2, atol=2e-2)
 
@@ -95,8 +96,9 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize("arch", ref_base.ARCH_IDS)
 def test_param_count_full_configs(arch):
     """The port's count of the reference's declaration equals the reference's;
-    for the dense configs the port declares the same tree itself (shapes,
-    init laws, axis names); the other families raise until they are ported."""
+    for every ported family the port declares the same tree itself (shapes,
+    init laws, axis names); the hybrid and encdec families raise until they
+    are ported."""
     ref_specs = ref_registry.get_model(ref_base.get_config(arch)).param_specs()
     want = ref_param.param_count(ref_specs)
     carried = jax.tree.map(
@@ -105,7 +107,7 @@ def test_param_count_full_configs(arch):
     )
     assert param.param_count(carried) == want
     cfg = base.get_config(arch)
-    if arch not in DENSE:
+    if arch in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
             registry.get_model(cfg)
         return
@@ -173,13 +175,11 @@ def test_state_dict_keys_name_reference_leaves(dense_models):
     assert sd["layers.0.attn.wq"].dtype == torch.bfloat16 and sd["embed"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("cfg_change", [
-    dict(n_experts=4, experts_per_token=2), dict(mla=True), dict(mrope=True), dict(vision_dim=8),
-])
-def test_unported_variants_raise(cfg_change):
-    cfg = dataclasses.replace(base.smoke_config("yi_6b"), **cfg_change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        registry.get_model(cfg)
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_variants_raise(arch):
+    for cfg in (base.get_config(arch), base.smoke_config(arch)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+            registry.get_model(cfg)
 
 
 def test_loss_is_not_ported():
