@@ -112,15 +112,16 @@
    prompts of 32 tokens and 4 greedy decode steps on the card, the CPU
    teacher-forced with the card's tokens, max |dlogit| / max |logit| <=
    2e-2 and greedy tokens equal where the CPU's margin is clear; for MoE
-   the CPU also takes the card's routing (its own gates), every routing
-   call's own choices are recorded on both, each (token, layer) set whose
-   experts differ must have a CPU margin (k-th minus (k+1)-th probability)
-   below that call's router-logit error, and the logits are compared where
-   the token they come from agreed at every layer.  Qwen2-VL also runs ``forward_train`` with 1,024
+   the CPU also takes the card's routing (its own gates) and the logits
+   are compared on every token; every routing call's own choices are
+   recorded on both, and each (token, layer) set whose experts differ must
+   have a CPU router-logit margin (k-th minus (k+1)-th) of at most twice
+   that token's router-logit error.  Qwen2-VL also runs ``forward_train`` with 1,024
    vision patches at distinct M-RoPE streams (B=1, S=1,088, 1 layer) and
    Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers) against the
    CPU.  Then each is served through ``repro_torch.launch.serve.main``
-   (``--layers`` where the weights must be cut): 4 requests of 32 tokens in
+   (``--layers``, the deepest whose f32 draw and bf16 copy stay under
+   ``DRAW_BUDGET_GIB``, where the full depth does not): 4 requests of 32 tokens in
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
    through an ``Engine`` of batch 1.  Logits finite, every request its
    tokens, and ``flash_attn`` launched exactly layers x prefills times, all
@@ -601,10 +602,11 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
 
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
-    # 64; then the lm_families phase's: MiniCPM3's MLA long prompt, q.k dim
-    # 96 and v dim 64 zero-padded to 128, Llama-4 Scout's GQA group of 5, and
-    # Qwen2-VL's group of 7 at its vision forward), then the reference test's
-    # f32 shapes, a ragged S = T, and a causal S < T
+    # 64; then every shape the lm_families phase sends: MiniCPM3's MLA long
+    # prompt and its served requests, q.k dim 96 and v dim 64 zero-padded to
+    # 128, Llama-4 Scout's GQA group of 5, Qwen2-VL's group of 7 at its vision
+    # forward and its served requests, and Moonlight's MHA requests), then the
+    # reference test's f32 shapes, a ragged S = T, and a causal S < T
     for B, S, T, H, hkv, hd, dtype, causal, mla in [
         (4, 32, 32, 32, 4, 128, torch.bfloat16, True, None),
         (1, 4096, 4096, 32, 4, 128, torch.bfloat16, True, None),
@@ -613,6 +615,9 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (1, 4096, 4096, 40, 40, 128, torch.bfloat16, True, (96, 64)),
         (4, 32, 32, 40, 8, 128, torch.bfloat16, True, None),
         (1, 1088, 1088, 28, 4, 128, torch.bfloat16, True, None),
+        (4, 32, 32, 16, 16, 128, torch.bfloat16, True, None),
+        (4, 32, 32, 40, 40, 128, torch.bfloat16, True, (96, 64)),
+        (4, 32, 32, 28, 4, 128, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
@@ -1597,10 +1602,9 @@ def _sync(dev) -> None:
 
 
 @contextlib.contextmanager
-def engine_probe(dev, keep_engine: bool = False):
+def engine_probe(dev):
     """Time every prefill and decode call of ``Engine`` (synchronized) and
-    check that its logits are finite; restores the engine on exit.  With
-    ``keep_engine``, ``rec["engine"]`` holds the engine last called."""
+    check that its logits are finite; restores the engine on exit."""
     import torch
 
     from repro_torch.serve.engine import Engine
@@ -1610,8 +1614,6 @@ def engine_probe(dev, keep_engine: bool = False):
 
     def timed(fn, key):
         def call(self, *args):
-            if keep_engine:
-                rec["engine"] = self
             _sync(dev)
             t0 = time.perf_counter()
             logits, cache = fn(self, *args)
@@ -1742,10 +1744,13 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
 
 
 # the lm_families phase: (arch, layers in the card-vs-CPU check, layers served);
-# a depth is cut only where the f32 draw and its bf16 copy would not fit in 80 GB
+# a served depth is cut only where the weights' f32 draw and its bf16 copy
+# would pass DRAW_BUDGET_GIB, and then to the deepest that stays under it (the
+# rest of the card's 79.6 GiB holds the CUDA context, caches and activations)
+DRAW_BUDGET_GIB = 74.0
 LM_FAMILIES = [
-    ("llama4_scout_17b_a16e", 1, 4),
-    ("moonshot_v1_16b_a3b", 2, 12),
+    ("llama4_scout_17b_a16e", 1, 5),
+    ("moonshot_v1_16b_a3b", 2, 22),
     ("minicpm3_4b", 2, 62),
     ("qwen2_vl_7b", 2, 28),
     ("falcon_mamba_7b", 2, 64),
@@ -1819,43 +1824,41 @@ def routing_probe(replay: list | None = None):
         moe.route = original
 
 
-def _routing_agreement(ref_calls, got_calls, cfg, batch, prompt_len, steps):
+def _routing_agreement(ref_calls, got_calls, cfg, steps) -> dict:
     """Compare the CPU's and the card's routing call by call.  A (token,
-    layer) set agrees when its experts and its kept experts are equal.
-    Every set whose experts differ must have a CPU margin (k-th minus
-    (k+1)-th probability) below that call's largest router-logit error.
-    Returns (agreeing sets, sets, for each step's logits (steps + 1, B)
-    whether the token they come from agreed at every layer (the prompt's
-    last token for the prefill, the fed token for a decode step), and the
-    largest router-logit error)."""
-    import torch
-
+    layer) set agrees when its experts and its kept experts are equal.  The
+    top-k of the softmax is the top-k of the router logits, so a set whose
+    experts differ needs two logits to cross: its CPU logit margin (k-th
+    minus (k+1)-th) must be at most twice that token's largest router-logit
+    error, the bound.  Returns the sets, the agreeing ones, the differing
+    ones, the sets within their bound (those that could differ), the largest
+    margin / bound of a differing set, and the largest router-logit error."""
     L, K = cfg.n_layers, cfg.experts_per_token
     require(len(ref_calls) == len(got_calls) == L * (1 + steps),
             f"{len(ref_calls)} and {len(got_calls)} routing calls, expected {L * (1 + steps)}")
-    rows_ok = torch.ones((steps + 1, batch), dtype=torch.bool)
-    agree = total = 0
-    worst = 0.0
+    res = dict(sets=0, agree=0, differ=0, near=0, worst_ratio=0.0, router_err=0.0)
     for i, (r, g) in enumerate(zip(ref_calls, got_calls)):
-        step = i // L
-        err = float((g["logits"] - r["logits"]).abs().max())
-        worst = max(worst, err)
-        r_idx, g_idx = r["idx"].sort(-1).values, g["idx"].sort(-1).values
-        same_experts = (r_idx == g_idx).all(-1)
-        top = r["probs"].sort(-1, descending=True).values
+        err = (g["logits"] - r["logits"]).abs().amax(-1)  # each token's
+        res["router_err"] = max(res["router_err"], float(err.max()))
+        top = r["logits"].sort(-1, descending=True).values
+        bound = 2 * err
         margin = top[..., K - 1] - top[..., K]
-        bad = ~same_experts & (margin >= err)
+        same_experts = (r["idx"].sort(-1).values == g["idx"].sort(-1).values).all(-1)
+        differ = ~same_experts
+        bad = differ & (margin > bound)
         require(not bool(bad.any()),
                 f"routing call {i}: {int(bad.sum())} (token, layer) sets differ with a CPU "
-                f"margin at or above the router-logit error {err:.3g}")
-        kept_r = torch.zeros(r["probs"].shape, dtype=torch.bool).scatter(-1, r["idx"], r["kept"])
-        kept_g = torch.zeros(g["probs"].shape, dtype=torch.bool).scatter(-1, g["idx"], g["kept"])
-        same = same_experts & (kept_r == kept_g).all(-1)
-        agree += int(same.sum())
-        total += same.numel()
-        tokens = same.reshape(batch, -1)  # prefill: (B, S) tokens; decode: (B, 1)
-        rows_ok[step] &= tokens[:, -1]
-    return agree, total, rows_ok, worst
+                f"logit margin above twice their router-logit error")
+        if bool(differ.any()):
+            res["worst_ratio"] = max(res["worst_ratio"],
+                                     float((margin / bound)[differ].max()))
+        kept_r = r["kept"].new_zeros(r["probs"].shape).scatter(-1, r["idx"], r["kept"])
+        kept_g = g["kept"].new_zeros(g["probs"].shape).scatter(-1, g["idx"], g["kept"])
+        res["agree"] += int((same_experts & (kept_r == kept_g).all(-1)).sum())
+        res["differ"] += int(differ.sum())
+        res["near"] += int((margin <= bound).sum())
+        res["sets"] += same_experts.numel()
+    return res
 
 
 def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 4) -> dict:
@@ -1864,9 +1867,8 @@ def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 
     the CPU teacher-forced with the card's tokens.  For MoE the CPU run also
     takes the card's routing (experts, drops, slots; its own gates), so that
     one token routed the other way does not move every token it is mixed
-    with; the CPU's own choices are recorded and compared set by set, and
-    the logit check runs over the tokens whose own routing agreed at every
-    layer.  Returns the relative logit error and counts."""
+    with; the CPU's own choices are recorded and compared set by set.
+    Returns the relative logit error and counts."""
     import torch
 
     from repro_torch.models.registry import get_model
@@ -1897,20 +1899,16 @@ def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 
     got, want = torch.stack(runs[0]), torch.stack(runs[1])  # (steps+1, B, V)
     require(bool(torch.isfinite(got).all()), "device logits are not finite")
     res = {}
-    rows = torch.ones(want.shape[:2], dtype=torch.bool)
     if cfg.n_experts:
-        res["sets_agree"], res["sets"], rows, res["router_err"] = _routing_agreement(
-            routes[1], routes[0], cfg, batch, prompt_len, steps)
-        require(bool(rows.any()), "no token's routing agreed at every layer")
-    res["rows"] = int(rows.sum())
-    err = float((got - want).abs()[rows].max())
-    res["err"], res["rel"] = err, err / float(want.abs()[rows].max())
+        res["routing"] = _routing_agreement(routes[1], routes[0], cfg, steps)
+    err = float((got - want).abs().max())
+    res["err"], res["rel"] = err, err / float(want.abs().max())
     top2 = want.topk(2, dim=-1).values
-    decided = ((top2[..., 0] - top2[..., 1]) > 2 * err) & rows
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
     same = got.argmax(-1) == want.argmax(-1)
     require(bool(same[decided].all()),
             f"greedy tokens differ where the CPU's margin is above {2 * err:.4g}")
-    res["compared"], res["tokens"] = int(decided.sum()), int(rows.sum())
+    res["compared"], res["tokens"] = int(decided.sum()), decided.numel()
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -1984,16 +1982,28 @@ def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
     return dict(S=S, rel_h=rel_h, rel=rel, seconds=time.perf_counter() - t0)
 
 
+def _draw_gib(cfg, layers: int) -> float:
+    """GiB of the weights' f32 draw plus its bf16 copy at ``layers`` layers."""
+    from repro_torch.models.param import param_count
+    from repro_torch.models.registry import get_model
+
+    specs = get_model(dataclasses.replace(cfg, n_layers=layers)).param_specs()
+    return param_count(specs) * (4 + 2) / 2**30
+
+
 def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 0) -> dict:
     """``launch.serve.main`` for ``arch`` at ``layers`` layers: 4 requests of
     32 tokens in a batch of 4, ``max_new`` tokens each; then, with
     ``long_len``, one prompt of that length through an ``Engine`` of batch 1
-    over the same weights.  The counters are set to 0 before and read after;
-    the busy share comes from one more run of the batch (not counted)."""
+    over the same weights, drawn again as ``serve.main`` draws them.  The
+    counters are set to 0 before and read after; the busy share comes from
+    one more run of the batch (not counted)."""
     import torch
 
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
-    from repro_torch.serve.engine import Engine
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Engine, demo_engine
 
     out = {}
     argv = ["--arch", arch, "--layers", str(layers), "--requests", "4", "--batch", "4",
@@ -2002,15 +2012,17 @@ def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
-    with engine_probe(dev, keep_engine=True) as rec:
+    with engine_probe(dev) as rec:
         t0 = time.perf_counter()
         outs = serve.main(argv)
         out["requests_s"] = time.perf_counter() - t0
     require(rec["finite"], f"{arch}: serving gave logits that are not finite")
     require([len(o) for o in outs] == [max_new] * 4,
             f"{arch}: not every request got {max_new} tokens")
-    engine = rec.pop("engine")
     out["requests"] = rec
+    _free(dev)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    engine = demo_engine(get_model(cfg), batch=4, s_max=32 + max_new, device=dev)
     if long_len:
         long_engine = Engine(engine.api, engine.params, 1, long_len + max_new, device=dev)
         prompt = np.random.default_rng(1).integers(
@@ -2043,12 +2055,19 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     for arch, cmp_layers, serve_layers in LM_FAMILIES:
         _free(dev)
         full = get_config(arch)
+        draw = _draw_gib(full, serve_layers)
+        deeper = _draw_gib(full, serve_layers + 1) if serve_layers < full.n_layers else None
+        require(draw <= DRAW_BUDGET_GIB and (deeper is None or deeper > DRAW_BUDGET_GIB),
+                f"{arch}: {serve_layers} layers is not the deepest draw under "
+                f"{DRAW_BUDGET_GIB} GiB ({draw:.2f} GiB; one more layer {deeper} GiB)")
         cfg = dataclasses.replace(full, n_layers=cmp_layers)
         cmp = lm_card_vs_cpu(dev, cfg)
-        routing = (f"; routing sets equal {cmp['sets_agree']} of {cmp['sets']} (token, layer), "
-                   f"router-logit error up to {cmp['router_err']:.3g}, "
-                   f"logits compared on {cmp['rows']} of {4 * 5} tokens"
-                   if full.n_experts else "")
+        rt = cmp.get("routing")
+        routing = (f"; routing sets equal {rt['agree']} of {rt['sets']} (token, layer), experts "
+                   f"differ in {rt['differ']}, each with a CPU logit margin within twice its "
+                   f"token's router-logit error (largest margin / bound {rt['worst_ratio']:.3g}; "
+                   f"{rt['near']} sets lie within their bound); router-logit error up to "
+                   f"{rt['router_err']:.3g}" if rt else "")
         log(f"[lm_families] {full.name} at {cmp_layers} of {full.n_layers} layers, card vs CPU: "
             f"max |dlogit| {cmp['err']:.4g}, relative {cmp['rel']:.3g} (limit {LM_REL_TOL})"
             f"{routing}; greedy tokens compared {cmp['compared']} of {cmp['tokens']}, all equal "
@@ -2090,7 +2109,9 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
             f"(launch.serve.main, 4 x 32 tokens, batch 4, {max_new} new): prefill "
             f"{req['prefill_ms'][0]:.2f} ms ({4 * 32 / req['prefill_ms'][0] * 1e3:.0f} tokens/s), "
             f"decode {dec:.2f} ms a step ({4e3 / dec:.1f} tokens/s); wall {res['requests_s']:.2f} s "
-            f"with the weights' draw; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device "
+            f"with the weights' draw; draw + bf16 copy {draw:.2f} GiB by the spec tree"
+            + ("" if deeper is None else f" ({deeper:.2f} with one more layer)")
+            + f"; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device "
             f"busy {res['busy']}; flash_attn {launches['flash_attn']} (tensor cores "
             f"{res['wgmma_launches']})")
         if long:
@@ -2147,9 +2168,6 @@ def main(argv: list[str] | None = None) -> int:
                     help="stop after phase 2 (build and kernels); prints no result line")
     ap.add_argument("--only", type=lambda v: v.split(","), metavar="KERNEL[,KERNEL]",
                     help="with --kernels-only: phase 2 for these kernels alone")
-    ap.add_argument("--lm-families-only", action="store_true",
-                    help="build, phase 2 for flash_attn, then phase lm_families alone; "
-                         "prints no result line")
     ap.add_argument("--crash-worker", metavar="DIR",
                     help="the serving phase's worker: serve into DIR and die at the armed "
                          "fault (exit 117); prints no result line")
@@ -2182,10 +2200,6 @@ def main(argv: list[str] | None = None) -> int:
     phase_build(args.ptxas_verbose)
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
-    if args.lm_families_only:
-        phase_kernels(dev, ["flash_attn"])
-        phase_lm_families(dev)
-        return 0
     rows = phase_kernels(dev, args.only)
     if args.kernels_only:
         return 0
