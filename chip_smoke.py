@@ -56,7 +56,13 @@
    ``LM_EMBED_TOL``, match sets equal but for pairs whose cosine lies within
    the embeddings' error of ``tau`` (counted), ``flash_attn`` launched twice
    a prefill.  ``icm_sweep`` and ``flash_attn`` must launch in the phase.
-8. Serving (``serving``): ``repro_torch.stream.ServingFrontend`` with
+8. Dedup (``dedup``): ``repro_torch.data.dedup.dedup_documents`` on CUDA over
+   ``make_documents(CorpusConfig(seed=1), 5000)`` with 8 crawl sources (smp,
+   ``k_max=24``): the paper's pipeline over documents, its canopies on
+   ``ngram_sim`` and its MLN steps on ``icm_sweep``, both of which must
+   launch.  Clusters, documents removed and the digests of the keep mask and
+   of the clusters must equal ``EXPECTED_DEDUP``.  Prints the wall.
+9. Serving (``serving``): ``repro_torch.stream.ServingFrontend`` with
    ``ServingConfig(max_batch=1)`` over a durable
    ``ServiceConfig(scheme="mmp", parallel=True, durability_dir=...,
    checkpoint_every=8)`` on CUDA, fed the 29 batches as 29 requests: the
@@ -69,7 +75,7 @@
    default ``ServingConfig()``, one request a paper, for throughput.  Prints
    requests and entities a second, the queue wait p50/p99, the WAL bytes,
    the checkpoint size and save time, ``recover.replayed`` and its wall.
-9. Shard (``shard``): sharded serving (``repro_torch.stream.shard``), its
+10. Shard (``shard``): sharded serving (``repro_torch.stream.shard``), its
    ranks this script again as subprocesses (``--shard-worker``) with
    ``REPRO_SHARD_COORD`` / ``_N`` / ``_ID`` set, on one ``torch.distributed``
    group each (a file store): several ranks on the one card, so the backend
@@ -88,7 +94,7 @@
    (bitset reductions, row gathers, probe unions: calls and ms),
    ``icm_sweep`` launches and rows against the one-rank stream of phase
    ``parallel``, and the backend.
-10. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
+11. LM (``lm``): Yi-6B at full width.  First the card against the CPU: 2
    layers, weights drawn on the card with ``init_params`` and copied to the
    CPU, a prefill of 4 prompts of 32 tokens and 4 greedy decode steps on the
    card, the CPU teacher-forced with the card's tokens (``lm_card_vs_cpu``,
@@ -105,7 +111,7 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-11. LM families (``lm_families``): the MoE (Llama-4 Scout, Moonlight), MLA
+12. LM families (``lm_families``): the MoE (Llama-4 Scout, Moonlight), MLA
    (MiniCPM3), VLM (Qwen2-VL) and SSM (Falcon-Mamba) configurations at full
    width, weights from ``init_params`` seed 0 (``LM_FAMILIES``).  Each first
    on the card against the CPU from one draw at a cut depth: a prefill of 4
@@ -120,17 +126,31 @@
    vision patches at distinct M-RoPE streams (B=1, S=1,088, 1 layer) and
    Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers) against the
    CPU.  Then each is served through ``repro_torch.launch.serve.main``
-   (``--layers``, the deepest whose f32 draw and bf16 copy stay under
-   ``DRAW_BUDGET_GIB``, where the full depth does not): 4 requests of 32 tokens in
+   (``--layers``, the deepest whose draw stays under ``DRAW_BUDGET_GIB``,
+   where the full depth does not): 4 requests of 32 tokens in
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
    through an ``Engine`` of batch 1.  Logits finite, every request its
    tokens, and ``flash_attn`` launched exactly layers x prefills times, all
    on the tensor-core route (MiniCPM3's q.k dim 96 and v dim 64 padded to
    128), and 0 times for Falcon-Mamba.  Prints prefill and decode ms,
-   tokens/s, peak memory and the busy share of one more batch run.
-12. Profile: the first 100 MMP evaluations once more under
+   tokens/s, peak memory and the busy share of one more batch run.  Then the
+   decode-only families (``LM_DECODE_ONLY``), which have no prefill in the
+   reference: ``launch.serve`` must exit with "has no prefill path", and the
+   phase drives the model API.  Jamba (hybrid) against the CPU at one period
+   (8 of 32 layers): 4 prompts of 4 tokens fed as decode steps and 4 greedy
+   steps, the CPU fed the card's tokens and replaying its routing, then
+   ``forward_train`` at B=1, S=128, each within 2e-2 with the routing held
+   as above; served at 16 of 32 layers (the deepest draw, cut in whole
+   periods): 4 prompts of 32 tokens as decode steps from a zero cache, 8
+   greedy tokens, one ``forward_train`` at B=1, S=2,048, ``flash_attn``
+   launched once an attention sublayer (2).  Whisper against the CPU at 2 +
+   2 layers: ``encode`` of 4 x 1,500 stub frames, ``decode_train`` of 4 x 32
+   tokens and a request's decode-step logits, each within 2e-2; served at 24
+   + 24 layers: ``encode``, ``build_cross_cache``, a 4-token prompt as decode
+   steps and 8 greedy tokens, ``flash_attn`` launched 24 times, non-causal.
+13. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-13. The card's name and power limit, the kernel list as one JSON line, and
+14. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -278,6 +298,19 @@ EXPECTED_EMBED_NGRAM = {
     False: (406, 1, 406, 2293, 0.8799, 0.5106, 0.6462, 229, 1842),
 }
 EMBED_NGRAM_DIGEST = "3d10dc4b13896c6c056632236002aa83640b39ae69d2ef3f973e31d1531624b6"
+# ``dedup_documents(make_documents(CorpusConfig(seed=1), 5000)[0],
+# source_of=np.arange(5000) % 8)`` (smp, k_max=24) with the reference package
+# under numpy 2.0, whose Zipf sampler the port's corpus keeps on any numpy:
+# the documents' digest (``documents_digest``), clusters, documents removed,
+# sha256 of ``np.packbits(keep_mask)``, and sha256 of the clusters ordered by
+# their smallest member, each as the int64 array [*sorted(c), -1],
+# concatenated (``cluster_digest``)
+DEDUP_DOCUMENTS_DIGEST = "902ef0c5a5849dd84d64e462840861fdb535b3aea0491d59375c11368a9cc5a0"
+EXPECTED_DEDUP = dict(
+    docs=5000, clusters=418, removed=520,
+    keep_digest="b4dfe5ce6b761ecab9ee357fadf853e0f6dafc5635b5855757757b6d9b3848fa",
+    cluster_digest="03780aa9b1d9f4275bf61e07861dac4beffbbbf670b8402be50c88fca2e0c1f2",
+)
 # the lm encoder, card against CPU from the same weights: embeddings within
 LM_EMBED_TOL = 2e-3
 # the serving phase's durable service checkpoints every that many ingests,
@@ -522,10 +555,12 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         )
 
     # the canopy seed probe, the all-pairs form, and the streaming probe;
-    # then the canopy's second chunk, the probe's two ends, a ragged F and
-    # an F that is not a multiple of 4 (the 4-byte copies)
+    # then the canopy's second chunk, the probe's two ends, a ragged F, an F
+    # that is not a multiple of 4 (the 4-byte copies), and the dedup phase's
+    # seed probe over 5,000 signatures' last chunk (N = 904)
     for M, N, F in [(1, 1024, 128), (1024, 1842, 128), (64, 936, 128), (1, 818, 128),
-                    (64, 65, 128), (68, 1697, 128), (3, 70, 100), (5, 37, 30)]:
+                    (64, 65, 128), (68, 1697, 128), (3, 70, 100), (5, 37, 30),
+                    (1, 904, 128)]:
         if not wanted("ngram_sim"):
             break
         A = rng.random((M, F)).astype(np.float32)
@@ -605,7 +640,11 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     # 64; then every shape the lm_families phase sends: MiniCPM3's MLA long
     # prompt and its served requests, q.k dim 96 and v dim 64 zero-padded to
     # 128, Llama-4 Scout's GQA group of 5, Qwen2-VL's group of 7 at its vision
-    # forward and its served requests, and Moonlight's MHA requests), then the
+    # forward and its served requests, Moonlight's MHA requests; Jamba's
+    # forward_train against the CPU (S=128) and served (S=2,048), Whisper's
+    # non-causal encoder over 1,500 frames (1,500 is not a multiple of the
+    # 64-key tile: the masked key tail and the TMA box past T), its cross
+    # attention (S=32 over T=1,500) and its causal decoder), then the
     # reference test's f32 shapes, a ragged S = T, and a causal S < T
     for B, S, T, H, hkv, hd, dtype, causal, mla in [
         (4, 32, 32, 32, 4, 128, torch.bfloat16, True, None),
@@ -618,6 +657,11 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (4, 32, 32, 16, 16, 128, torch.bfloat16, True, None),
         (4, 32, 32, 40, 40, 128, torch.bfloat16, True, (96, 64)),
         (4, 32, 32, 28, 4, 128, torch.bfloat16, True, None),
+        (1, 128, 128, 32, 8, 128, torch.bfloat16, True, None),
+        (1, 2048, 2048, 32, 8, 128, torch.bfloat16, True, None),
+        (4, 1500, 1500, 16, 16, 64, torch.bfloat16, False, None),
+        (4, 32, 1500, 16, 16, 64, torch.bfloat16, False, None),
+        (4, 32, 32, 16, 16, 64, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
@@ -1231,6 +1275,52 @@ def phase_matchers(dev, resolved) -> dict:
     return total
 
 
+def documents_digest(docs, dup_of) -> str:
+    """sha256 of each document's int32 tokens followed by b"|", then ``dup_of``."""
+    return hashlib.sha256(b"".join(np.asarray(d, np.int32).tobytes() + b"|" for d in docs)
+                          + np.asarray(dup_of, np.int64).tobytes()).hexdigest()
+
+
+def cluster_digest(clusters) -> str:
+    """sha256 of the clusters ordered by their smallest member, each as the
+    int64 array [*sorted(c), -1], concatenated."""
+    parts = [np.asarray([*sorted(int(x) for x in c), -1], dtype=np.int64).tobytes()
+             for c in sorted(clusters, key=lambda c: int(np.min(c)))]
+    return hashlib.sha256(b"".join(parts)).hexdigest()
+
+
+def phase_dedup(dev) -> dict:
+    """Corpus dedup through the MLN pipeline on the card (see the module
+    docstring); returns its launch counts."""
+    from repro_torch.data.corpus import CorpusConfig, make_documents, zipf
+    from repro_torch.data.dedup import dedup_documents
+
+    n = EXPECTED_DEDUP["docs"]
+    docs, dup_of = make_documents(CorpusConfig(seed=1), n)
+    require(documents_digest(docs, dup_of) == DEDUP_DOCUMENTS_DIGEST,
+            "dedup: the generated documents differ from the reference's")
+    log(f"[dedup] numpy {np.__version__}: Generator.zipf(1.2) from seed 1 draws "
+        f"{np.random.default_rng(1).zipf(1.2, size=8).tolist()}, the corpus's numpy 2.0 "
+        f"sampler {zipf(np.random.default_rng(1), 1.2, 8).tolist()}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    report = dedup_documents(docs, source_of=np.arange(n) % 8, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    lc = _read_counts()
+    got = dict(docs=report.n_docs, clusters=report.n_clusters, removed=report.n_removed,
+               keep_digest=hashlib.sha256(np.packbits(report.keep_mask).tobytes()).hexdigest(),
+               cluster_digest=cluster_digest(report.clusters))
+    require(got == EXPECTED_DEDUP, f"dedup: got {got}, expected {EXPECTED_DEDUP}")
+    require(int(report.keep_mask.sum()) == n - report.n_removed, "dedup: keep mask and count differ")
+    require(lc["icm_sweep"] > 0 and lc["ngram_sim"] > 0,
+            f"dedup: icm_sweep or ngram_sim never launched: {lc}")
+    log(f"[dedup] {n} documents (CorpusConfig(seed=1), 8 sources), smp, k_max=24: wall "
+        f"{wall:.2f} s, {report.n_clusters} clusters, {report.n_removed} removed, keep mask and "
+        f"clusters equal to the reference's digests; launches {lc}")
+    return lc
+
+
 def _durable_config(dur_dir):
     from repro_torch.core.mln import PAPER_LEARNED
     from repro_torch.stream import ServiceConfig
@@ -1734,7 +1824,7 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
         f"{lng['prefill_ms'][0]:.1f} ms ({long_len / lng['prefill_ms'][0] * 1e3:.0f} tokens/s); "
         f"decode ms a token median {np.median(lng['decode_ms']):.2f} "
         f"({1e3 / np.median(lng['decode_ms']):.1f} tokens/s)")
-    log(f"[lm] peak memory: {res['peak_init_bytes'] / 2**30:.2f} GiB with the weights' f32 draw, "
+    log(f"[lm] peak memory: {res['peak_init_bytes'] / 2**30:.2f} GiB with the weights' draw, "
         f"{res['peak_long_bytes'] / 2**30:.2f} GiB serving the long prompt "
         f"(torch.cuda.max_memory_allocated); device busy: requests {res['busy_requests']}, "
         f"long prompt {res['busy_long']}")
@@ -1744,13 +1834,14 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
 
 
 # the lm_families phase: (arch, layers in the card-vs-CPU check, layers served);
-# a served depth is cut only where the weights' f32 draw and its bf16 copy
-# would pass DRAW_BUDGET_GIB, and then to the deepest that stays under it (the
-# rest of the card's 79.6 GiB holds the CUDA context, caches and activations)
+# a served depth is cut only where the weights' draw (the tree at its declared
+# dtypes plus its largest leaf in f32, ``_draw_gib``) would pass
+# DRAW_BUDGET_GIB, and then to the deepest that stays under it (the rest of
+# the card's 79.6 GiB holds the CUDA context, caches and activations)
 DRAW_BUDGET_GIB = 74.0
 LM_FAMILIES = [
-    ("llama4_scout_17b_a16e", 1, 5),
-    ("moonshot_v1_16b_a3b", 2, 22),
+    ("llama4_scout_17b_a16e", 1, 7),
+    ("moonshot_v1_16b_a3b", 2, 29),
     ("minicpm3_4b", 2, 62),
     ("qwen2_vl_7b", 2, 28),
     ("falcon_mamba_7b", 2, 64),
@@ -1824,7 +1915,7 @@ def routing_probe(replay: list | None = None):
         moe.route = original
 
 
-def _routing_agreement(ref_calls, got_calls, cfg, steps) -> dict:
+def _routing_agreement(ref_calls, got_calls, cfg, n_calls: int) -> dict:
     """Compare the CPU's and the card's routing call by call.  A (token,
     layer) set agrees when its experts and its kept experts are equal.  The
     top-k of the softmax is the top-k of the router logits, so a set whose
@@ -1833,9 +1924,9 @@ def _routing_agreement(ref_calls, got_calls, cfg, steps) -> dict:
     error, the bound.  Returns the sets, the agreeing ones, the differing
     ones, the sets within their bound (those that could differ), the largest
     margin / bound of a differing set, and the largest router-logit error."""
-    L, K = cfg.n_layers, cfg.experts_per_token
-    require(len(ref_calls) == len(got_calls) == L * (1 + steps),
-            f"{len(ref_calls)} and {len(got_calls)} routing calls, expected {L * (1 + steps)}")
+    K = cfg.experts_per_token
+    require(len(ref_calls) == len(got_calls) == n_calls,
+            f"{len(ref_calls)} and {len(got_calls)} routing calls, expected {n_calls}")
     res = dict(sets=0, agree=0, differ=0, near=0, worst_ratio=0.0, router_err=0.0)
     for i, (r, g) in enumerate(zip(ref_calls, got_calls)):
         err = (g["logits"] - r["logits"]).abs().amax(-1)  # each token's
@@ -1896,21 +1987,29 @@ def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 
         runs.append(seq)
         routes.append(calls)
     del card, host, cache
-    got, want = torch.stack(runs[0]), torch.stack(runs[1])  # (steps+1, B, V)
-    require(bool(torch.isfinite(got).all()), "device logits are not finite")
-    res = {}
+    res = _logit_agreement(torch.stack(runs[0]), torch.stack(runs[1]))  # (steps+1, B, V)
     if cfg.n_experts:
-        res["routing"] = _routing_agreement(routes[1], routes[0], cfg, steps)
+        res["routing"] = _routing_agreement(routes[1], routes[0], cfg,
+                                            cfg.n_layers * (1 + steps))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _logit_agreement(got, want) -> dict:
+    """Card logits ``got`` against CPU logits ``want`` (steps, B, V): the
+    largest difference, relative to the largest CPU logit, and greedy tokens
+    equal wherever the CPU's top-1/top-2 margin exceeds twice that difference."""
+    import torch
+
+    require(bool(torch.isfinite(got).all()), "device logits are not finite")
     err = float((got - want).abs().max())
-    res["err"], res["rel"] = err, err / float(want.abs().max())
     top2 = want.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 2 * err
     same = got.argmax(-1) == want.argmax(-1)
     require(bool(same[decided].all()),
             f"greedy tokens differ where the CPU's margin is above {2 * err:.4g}")
-    res["compared"], res["tokens"] = int(decided.sum()), decided.numel()
-    res["seconds"] = time.perf_counter() - t0
-    return res
+    return dict(err=err, rel=err / float(want.abs().max()), compared=int(decided.sum()),
+                tokens=decided.numel())
 
 
 def _logits_rel(want_h, got_h, api_mod, cfg, models, every: int) -> tuple[float, float]:
@@ -1983,12 +2082,36 @@ def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
 
 
 def _draw_gib(cfg, layers: int) -> float:
-    """GiB of the weights' f32 draw plus its bf16 copy at ``layers`` layers."""
-    from repro_torch.models.param import param_count
+    """GiB of the weights' draw at ``layers`` layers, by the spec tree:
+    ``init_params`` casts each leaf to its declared dtype as it is drawn, so
+    the peak is the tree at its declared dtypes plus the largest leaf in f32."""
+    from repro_torch.models.param import leaves
     from repro_torch.models.registry import get_model
 
-    specs = get_model(dataclasses.replace(cfg, n_layers=layers)).param_specs()
-    return param_count(specs) * (4 + 2) / 2**30
+    specs = leaves(get_model(dataclasses.replace(cfg, n_layers=layers)).param_specs())
+    return (sum(ps.size * ps.dtype.itemsize for ps in specs)
+            + 4 * max(ps.size for ps in specs)) / 2**30
+
+
+def _depth_step(cfg) -> int:
+    """The unit a served depth is cut in: a period for the hybrid (its
+    parameter tree stacks whole periods), else a layer."""
+    return (cfg.period or cfg.attn_layer_period) if cfg.family == "hybrid" else 1
+
+
+def _deepest_draw(arch: str, layers: int) -> tuple[float, float | None]:
+    """The draw at ``layers`` and at one more step of depth (None at full
+    depth); fails unless ``layers`` is the deepest under ``DRAW_BUDGET_GIB``."""
+    from repro_torch.configs.base import get_config
+
+    full = get_config(arch)
+    more = layers + _depth_step(full)
+    draw = _draw_gib(full, layers)
+    deeper = _draw_gib(full, more) if more <= full.n_layers else None
+    require(draw <= DRAW_BUDGET_GIB and (deeper is None or deeper > DRAW_BUDGET_GIB),
+            f"{arch}: {layers} layers is not the deepest draw under {DRAW_BUDGET_GIB} GiB "
+            f"({draw:.2f} GiB; one more step of depth {deeper} GiB)")
+    return draw, deeper
 
 
 def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 0) -> dict:
@@ -2044,9 +2167,416 @@ def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 
     return out
 
 
+# the decode-only families: the reference gives them no prefill, so
+# launch.serve refuses them and the phase drives the model API: (arch, layers
+# in the card-vs-CPU check, layers served); the hybrid's depth is cut in whole
+# periods of 8
+LM_DECODE_ONLY = [
+    ("jamba_v0_1_52b", 8, 16),
+    ("whisper_medium", 2, 24),
+]
+
+
+def _zero_cache(api, batch: int, s_max: int, device) -> dict:
+    import torch
+
+    from repro_torch.models.param import spec_tree_map
+
+    return spec_tree_map(lambda ps: torch.zeros(ps.shape, dtype=ps.dtype, device=device),
+                         api.cache_specs(batch, s_max))
+
+
+def decode_steps(dev, api, params, cache, prompt: np.ndarray, max_new: int, fed=None) -> dict:
+    """A prompt (B, P) fed as decode steps into ``cache`` (as the SSM's prefill
+    does), then greedy decode: ``max_new`` tokens, the first from the last
+    prompt step, each fed back as the next step (``fed``: feed another run's
+    tokens instead).  Returns every step's logits (B, V) f32 on the CPU, the
+    tokens and each step's ms (synchronized)."""
+    import torch
+
+    B, P = prompt.shape
+    toks = torch.as_tensor(prompt, device=dev)
+    out = dict(logits=[], tokens=[], ms=[])
+    for t in range(P + max_new - 1):
+        if t < P:
+            tok = toks[:, t:t + 1]
+        else:
+            tok = (fed[t - P] if fed is not None else out["tokens"][-1]).to(dev)[:, None]
+        batch = {"tokens": tok.to(torch.int32),
+                 "pos": torch.full((B,), t, dtype=torch.int32, device=dev)}
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = api.decode(params, cache, batch)
+        _sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits[:, 0].float().cpu())
+        if t >= P - 1:
+            out["tokens"].append(out["logits"][-1].argmax(-1).to(torch.int32))
+    return out
+
+
+def _moe_sublayers(cfg) -> int:
+    from repro_torch.models import hybrid
+
+    return sum(hybrid._is_moe(cfg, i) for i in range(cfg.n_layers))
+
+
+@contextlib.contextmanager
+def sublayer_check(card, host):
+    """While the hybrid runs on the card, run each sublayer call once more
+    on the CPU, on the card's own input (caches copied before the card
+    updates them) and the CPU copy of the weights, so that no earlier
+    sublayer's rounding reaches the CPU's result: the embedding, every
+    RMSNorm, mixer (attention or SSM, full or decode), FFN (MLP or MoE, the
+    CPU replaying the card's routing) and the LM head.  Records the largest
+    difference relative to the largest CPU value for each kind of call, the
+    head's outputs on both, and each MoE call's own routing on both."""
+    import torch
+
+    from repro_torch.models import hybrid, ssm
+
+    on_host = {id(t): h for (_, t), (_, h) in zip(card.named_parameters(),
+                                                  host.named_parameters())}
+    on_host.update({id(m): h for (_, m), (_, h) in zip(card.named_modules(),
+                                                       host.named_modules())})
+
+    def to_host(x):
+        if id(x) in on_host:
+            return on_host[id(x)]
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: to_host(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(to_host(v) for v in x)
+        return x
+
+    rec = dict(rel={}, head=[], host_routes=[], card_routes=[])
+
+    def checked(name, fn):
+        def call(*args):
+            host_args = to_host(args)
+            with routing_probe() as card_calls:
+                out = fn(*args)
+            with routing_probe(replay=card_calls or None) as host_calls:
+                want = fn(*host_args)
+            rec["card_routes"].extend(card_calls)
+            rec["host_routes"].extend(host_calls)
+            got = (out[0] if isinstance(out, tuple) else out).float().cpu()
+            want = (want[0] if isinstance(want, tuple) else want).float()
+            rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            rec["rel"][name] = max(rec["rel"].get(name, 0.0), rel)
+            if name == "logits_of":
+                rec["head"].append((got, want))
+            return out
+        return call
+
+    patched = [(hybrid, "embed_lookup"), (hybrid, "rmsnorm"), (hybrid, "attention_train"),
+               (hybrid, "attention_decode"), (ssm, "ssm_forward"), (ssm, "ssm_decode"),
+               (hybrid, "_ffn"), (hybrid, "logits_of")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    for mod, name, fn in originals:
+        setattr(mod, name, checked(name, fn))
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _recorded(mod, name: str):
+    """Record the output of every call of ``mod.name`` (f32, on the CPU)."""
+    outs = []
+    fn = getattr(mod, name)
+
+    def call(*args):
+        out = fn(*args)
+        outs.append(out.float().cpu())
+        return out
+
+    setattr(mod, name, call)
+    try:
+        yield outs
+    finally:
+        setattr(mod, name, fn)
+
+
+def hybrid_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 4, new: int = 4,
+                       train_len: int = 128) -> dict:
+    """The hybrid on the card and on the CPU from one draw: a prompt fed as
+    decode steps from a zero cache, then greedy steps, and ``forward_train``
+    at B=1, S=``train_len``.  Held to the limit: every sublayer and the LM
+    head on the card's own input (:func:`sublayer_check`), with the MoE
+    routing compared set by set.  Measured beside it: the CPU running free,
+    fed the card's tokens and replaying its routing (as ``lm_card_vs_cpu``),
+    where bf16 rounding carries through all the layers."""
+    import torch
+
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card, host = _models_on_both(dev, api)
+    rng = np.random.default_rng(23)
+    prompt = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab_size - 1, (1, train_len)).astype(np.int32)
+    steps = prompt_len + new - 1
+    with sublayer_check(card, host) as rec:
+        decode_steps(dev, api, card, _zero_cache(api, batch, prompt_len + new, dev), prompt, new)
+        hidden = hybrid.forward_train(cfg, card, torch.as_tensor(toks, device=dev))[0][:, ::8]
+        hybrid.logits_of(cfg, card, hidden)
+    head = rec["head"]
+    res = _logit_agreement(torch.stack([g for g, _ in head[:steps]]),
+                           torch.stack([w for _, w in head[:steps]]))
+    res["train_rel"] = float((head[-1][0] - head[-1][1]).abs().max()) / float(
+        head[-1][1].abs().max())
+    res["sublayer_rel"] = rec["rel"]
+    res["routing"] = _routing_agreement(rec["host_routes"], rec["card_routes"], cfg,
+                                        _moe_sublayers(cfg) * (steps + 1))
+
+    runs, routes = [], []
+    for d, model in [(dev, card), (cpu, host)]:
+        with routing_probe(replay=routes[0] if routes else None) as calls:
+            cache = _zero_cache(api, batch, prompt_len + new, d)
+            runs.append(decode_steps(d, api, model, cache, prompt, new,
+                                     fed=runs[0]["tokens"] if runs else None))
+        routes.append(calls)
+    free = _logit_agreement(torch.stack(runs[0]["logits"]), torch.stack(runs[1]["logits"]))
+    free["routing"] = _routing_agreement(routes[1], routes[0], cfg, _moe_sublayers(cfg) * steps)
+    hidden, routes, norms = [], [], []
+    for d, model in [(dev, card), (cpu, host)]:
+        with routing_probe(replay=routes[0] if routes else None) as calls, \
+                _recorded(hybrid, "rmsnorm") as outs:
+            hidden.append(hybrid.forward_train(cfg, model, torch.as_tensor(toks, device=d))[0])
+        routes.append(calls)
+        norms.append(outs)
+    free["train_rel_h"], free["train_rel"] = _logits_rel(hidden[1], hidden[0], hybrid, cfg,
+                                                         (host, card), every=8)
+    # each sublayer's normed input (ln1, ln2, ..., ln_f), card against CPU
+    free["growth"] = [float((g - w).abs().max()) / float(w.abs().max())
+                      for g, w in zip(*norms)]
+    free["train_routing"] = _routing_agreement(routes[1], routes[0], cfg, _moe_sublayers(cfg))
+    res["free"] = free
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _stub_frames(cfg, batch: int, seed: int) -> np.ndarray:
+    """Stub audio frame embeddings (B, encoder_frames, d_model), drawn as the
+    registry's ``demo_batch`` draws them."""
+    return np.random.default_rng(seed).normal(
+        0, 0.3, (batch, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+
+
+def _encdec_request(dev, api, params, frames: np.ndarray, prompt: np.ndarray, max_new: int,
+                    fed=None) -> dict:
+    """One batch of requests: ``encode`` the frames, ``build_cross_cache``
+    into a zero cache, then the prompt as decode steps and greedy decode."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    cfg = api.cfg
+    frames = torch.as_tensor(frames, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    memory = encdec.encode(cfg, params, frames)
+    _sync(dev)
+    t1 = time.perf_counter()
+    cache = _zero_cache(api, prompt.shape[0], prompt.shape[1] + max_new, dev)
+    for name, t in encdec.build_cross_cache(cfg, params, memory).items():
+        cache["layers"]["cross"][name].copy_(t)
+    _sync(dev)
+    t2 = time.perf_counter()
+    out = decode_steps(dev, api, params, cache, prompt, max_new, fed=fed)
+    out.update(memory=memory, encode_ms=(t1 - t0) * 1e3, cross_ms=(t2 - t1) * 1e3)
+    return out
+
+
+def encdec_card_vs_cpu(dev, cfg, batch: int = 4, text: int = 32, prompt_len: int = 4,
+                       new: int = 4) -> dict:
+    """The encoder-decoder on the card and on the CPU from one draw:
+    ``encode`` of stub frames, ``decode_train`` over each run's own memory,
+    and a request's decode steps (cross cache, prompt, greedy; the CPU fed the
+    card's tokens)."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    card, host = _models_on_both(dev, api)
+    frames = _stub_frames(cfg, batch, 29)
+    rng = np.random.default_rng(31)
+    toks = rng.integers(1, cfg.vocab_size - 1, (batch, text)).astype(np.int32)
+    prompt = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
+    runs, hidden = [], []
+    for d, model in [(dev, card), (torch.device("cpu"), host)]:
+        runs.append(_encdec_request(d, api, model, frames, prompt, new,
+                                    fed=runs[0]["tokens"] if runs else None))
+        hidden.append(encdec.decode_train(cfg, model, torch.as_tensor(toks, device=d),
+                                          runs[-1]["memory"]))
+    res = _logit_agreement(torch.stack(runs[0]["logits"]), torch.stack(runs[1]["logits"]))
+    mem_card, mem_cpu = runs[0]["memory"].float().cpu(), runs[1]["memory"].float()
+    res["encode_rel"] = float((mem_card - mem_cpu).abs().max()) / float(mem_cpu.abs().max())
+    res["train_rel_h"], res["train_rel"] = _logits_rel(hidden[1], hidden[0], encdec, cfg,
+                                                       (host, card), every=4)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def decode_only_serve(dev, arch: str, layers: int, max_new: int = 8, batch: int = 4,
+                      prompt_len: int = 32, train_len: int = 2048) -> dict:
+    """Serve a decode-only family at ``layers`` layers with random weights
+    drawn on the card: ``batch`` requests a batch; the hybrid's prompts of
+    ``prompt_len`` tokens fed as decode steps from a zero cache, then one
+    ``forward_train`` at B=1, S=``train_len``; the encoder-decoder's stub
+    frames encoded, the cross cache built, a 4-token prompt fed as decode
+    steps.  Then ``max_new`` greedy tokens.  The counters are set to 0 before
+    and read after; the busy share comes from one more request (not
+    counted)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.models.param import init_params
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    api = get_model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    params = api.load(init_params(api.param_specs(), seed=0, device=dev))
+    _sync(dev)
+    out = dict(draw_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        frames = _stub_frames(cfg, batch, 0)
+        prompt = rng.integers(1, cfg.vocab_size - 1, (batch, 4)).astype(np.int32)
+
+        def request():
+            return _encdec_request(dev, api, params, frames, prompt, max_new)
+    else:
+        prompt = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
+
+        def request():
+            cache = _zero_cache(api, batch, prompt_len + max_new, dev)
+            return decode_steps(dev, api, params, cache, prompt, max_new)
+    run = request()
+    P = prompt.shape[1]
+    require(all(bool(torch.isfinite(lg).all()) for lg in run["logits"]),
+            f"{arch}: logits not finite")
+    require(len(run["tokens"]) == max_new, f"{arch}: not every request got {max_new} tokens")
+    out.update(prompt_ms=sum(run["ms"][:P]), decode_ms=float(np.median(run["ms"][P:])))
+    if cfg.family == "encdec":
+        out.update(encode_ms=run["encode_ms"], cross_ms=run["cross_ms"])
+    else:
+        toks = torch.as_tensor(
+            rng.integers(1, cfg.vocab_size - 1, (1, train_len)).astype(np.int32), device=dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        hidden, _ = hybrid.forward_train(cfg, params, toks)
+        logits = hybrid.logits_of(cfg, params, hidden[:, -1:])
+        _sync(dev)
+        out["train_ms"] = (time.perf_counter() - t1) * 1e3
+        require(bool(torch.isfinite(logits).all()), f"{arch}: forward_train not finite")
+    out["launches"] = _read_counts()
+    out["wgmma_launches"] = _wrappers()["flash_attn"].wgmma_launches
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["busy"] = _device_busy(dev, request)
+    del params
+    return out
+
+
+def decode_only_family(dev, arch: str, cmp_layers: int, serve_layers: int,
+                       max_new: int) -> dict:
+    """One decode-only configuration: ``launch.serve`` refuses it, as the
+    reference's does; the card against the CPU at ``cmp_layers``; served at
+    ``serve_layers`` (the deepest draw under the budget).  Returns the
+    serving part's launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    full = get_config(arch)
+    try:
+        serve.main(["--arch", arch, "--device", str(dev)])
+    except SystemExit as e:
+        require("has no prefill path" in str(e), f"{arch}: launch.serve exited with {e}")
+    else:
+        raise RuntimeError(f"{arch}: launch.serve served a family with no prefill")
+    draw, deeper = _deepest_draw(arch, serve_layers)
+    _free(dev)
+    hybrid = full.family == "hybrid"
+    if hybrid:
+        cmp = hybrid_card_vs_cpu(dev, dataclasses.replace(full, n_layers=cmp_layers))
+        cmp_depth = f"{cmp_layers} of {full.n_layers} layers"
+    else:
+        cmp = encdec_card_vs_cpu(dev, dataclasses.replace(full, n_layers=cmp_layers,
+                                                          encoder_layers=cmp_layers))
+        cmp_depth = f"{cmp_layers} + {cmp_layers} of {full.encoder_layers} + {full.n_layers} layers"
+    if hybrid:
+        rt, free = cmp["routing"], cmp["free"]
+        detail = ("; every sublayer on the card's own input, largest relative difference: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in sorted(cmp["sublayer_rel"].items()))
+                  + f"; forward_train B=1, S=128 logits {cmp['train_rel']:.3g}; routing sets "
+                  f"equal {rt['agree']} of {rt['sets']}, experts differ in {rt['differ']} "
+                  f"(largest margin / bound {rt['worst_ratio']:.3g}, {rt['near']} sets within "
+                  f"their bound). Running free (not held to the limit: bf16 rounding carried "
+                  f"through {cmp_layers} layers): decode-step logits relative {free['rel']:.3g}, "
+                  f"forward_train hidden {free['train_rel_h']:.3g}, logits "
+                  f"{free['train_rel']:.3g}, each sublayer's normed input relative "
+                  + " ".join(f"{g:.2g}" for g in free["growth"]) + "; routing experts differ in "
+                  f"{free['routing']['differ'] + free['train_routing']['differ']} sets, each "
+                  f"within its bound")
+        rels = [cmp["rel"], cmp["train_rel"], *cmp["sublayer_rel"].values()]
+    else:
+        detail = (f"; encode (4 x 1,500 frames) relative {cmp['encode_rel']:.3g}; decode_train "
+                  f"(4 x 32 tokens): hidden relative {cmp['train_rel_h']:.3g}, logits "
+                  f"{cmp['train_rel']:.3g}")
+        rels = [cmp["rel"], cmp["train_rel_h"], cmp["train_rel"], cmp["encode_rel"]]
+    log(f"[lm_families] {full.name} at {cmp_depth}, card vs CPU: decode-step logits max |dlogit| "
+        f"{cmp['err']:.4g}, relative {cmp['rel']:.3g} (limit {LM_REL_TOL}){detail}; greedy "
+        f"tokens compared {cmp['compared']} of {cmp['tokens']}, all equal ({cmp['seconds']:.1f} s)")
+    require(max(rels) <= LM_REL_TOL, f"{arch}: card vs CPU beyond {LM_REL_TOL}: {rels}")
+    require(cmp["compared"] >= 1, f"{arch}: no greedy token was clear enough to compare")
+    _free(dev)
+
+    res = decode_only_serve(dev, arch, serve_layers, max_new)
+    launches = res["launches"]
+    cfg = dataclasses.replace(full, n_layers=serve_layers)
+    # one launch an attention layer a forward: the hybrid's attention
+    # sublayers in its forward_train, the encoder's layers in one encode
+    want = (sum(i % cfg.attn_layer_period == cfg.attn_layer_offset for i in range(serve_layers))
+            if hybrid else full.encoder_layers)
+    require(launches["flash_attn"] == want == res["wgmma_launches"],
+            f"{arch}: flash_attn launched {launches['flash_attn']} times "
+            f"({res['wgmma_launches']} on the tensor cores), expected {want}")
+    first = (f"prompt (4 x 32 tokens) as decode steps {res['prompt_ms']:.2f} ms; forward_train "
+             f"B=1, S=2,048 {res['train_ms']:.2f} ms" if hybrid else
+             f"encode (4 x 1,500 frames) {res['encode_ms']:.2f} ms, cross cache "
+             f"{res['cross_ms']:.2f} ms, prompt (4 x 4 tokens) {res['prompt_ms']:.2f} ms")
+    depth = (f"{serve_layers} of {full.n_layers} layers" if hybrid
+             else f"{full.encoder_layers} + {serve_layers} layers")
+    log(f"[lm_families] {full.name} served at {depth} (batch 4, {max_new} new): {first}; decode "
+        f"{res['decode_ms']:.2f} ms a step ({4e3 / res['decode_ms']:.1f} tokens/s); weights drawn "
+        f"in {res['draw_s']:.2f} s, draw peak {draw:.2f} GiB by the spec tree"
+        + ("" if deeper is None else f" ({deeper:.2f} one period deeper)")
+        + f"; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device busy {res['busy']}; "
+        f"flash_attn {launches['flash_attn']} (tensor cores {res['wgmma_launches']})")
+    return launches
+
+
 def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     """The MoE, MLA, VLM and SSM families at full width: each against the
-    CPU at a cut depth, then served through ``launch.serve.main``.  Returns
+    CPU at a cut depth, then served through ``launch.serve.main``; then the
+    decode-only hybrid and encoder-decoder (``LM_DECODE_ONLY``).  Returns
     the launch counts of the serving parts."""
     from repro_torch.configs.base import get_config
 
@@ -2055,11 +2585,7 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     for arch, cmp_layers, serve_layers in LM_FAMILIES:
         _free(dev)
         full = get_config(arch)
-        draw = _draw_gib(full, serve_layers)
-        deeper = _draw_gib(full, serve_layers + 1) if serve_layers < full.n_layers else None
-        require(draw <= DRAW_BUDGET_GIB and (deeper is None or deeper > DRAW_BUDGET_GIB),
-                f"{arch}: {serve_layers} layers is not the deepest draw under "
-                f"{DRAW_BUDGET_GIB} GiB ({draw:.2f} GiB; one more layer {deeper} GiB)")
+        draw, deeper = _deepest_draw(arch, serve_layers)
         cfg = dataclasses.replace(full, n_layers=cmp_layers)
         cmp = lm_card_vs_cpu(dev, cfg)
         rt = cmp.get("routing")
@@ -2109,7 +2635,7 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
             f"(launch.serve.main, 4 x 32 tokens, batch 4, {max_new} new): prefill "
             f"{req['prefill_ms'][0]:.2f} ms ({4 * 32 / req['prefill_ms'][0] * 1e3:.0f} tokens/s), "
             f"decode {dec:.2f} ms a step ({4e3 / dec:.1f} tokens/s); wall {res['requests_s']:.2f} s "
-            f"with the weights' draw; draw + bf16 copy {draw:.2f} GiB by the spec tree"
+            f"with the weights' draw; draw peak {draw:.2f} GiB by the spec tree"
             + ("" if deeper is None else f" ({deeper:.2f} with one more layer)")
             + f"; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device "
             f"busy {res['busy']}; flash_attn {launches['flash_attn']} (tensor cores "
@@ -2122,6 +2648,9 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
                 f"tokens/s), decode {ldec:.2f} ms a token")
         _count_into(total, launches)
         del res
+    for arch, cmp_layers, serve_layers in LM_DECODE_ONLY:
+        _free(dev)
+        _count_into(total, decode_only_family(dev, arch, cmp_layers, serve_layers, max_new))
     _free(dev)
     log(f"[lm_families] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return total
@@ -2208,6 +2737,7 @@ def main(argv: list[str] | None = None) -> int:
     parallel_launches = phase_parallel(dev, resolved, seq_icm, rules_icm)
     stream_launches = phase_stream(dev, resolved)
     matchers_launches = phase_matchers(dev, resolved)
+    dedup_launches = phase_dedup(dev)
     serving_launches = phase_serving(dev)
     shard_launches = phase_shard(dev)
     lm_launches = phase_lm(dev)
@@ -2230,13 +2760,14 @@ def main(argv: list[str] | None = None) -> int:
             **({"sources": meta["sources"]} if "sources" in meta else {}),
             replaces=meta["replaces"],
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
-                      + stream_launches[name] + matchers_launches[name]
+                      + stream_launches[name] + matchers_launches[name] + dedup_launches[name]
                       + serving_launches[name] + shard_launches[name] + lm_launches[name]
                       + families_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
                               "matchers": matchers_launches[name],
+                              "dedup": dedup_launches[name],
                               "serving": serving_launches[name],
                               "shard": shard_launches[name], "lm": lm_launches[name],
                               "lm_families": families_launches[name]},

@@ -8,7 +8,8 @@ CUDA kernels.  ``--smoke`` serves the architecture's reduced config;
 ``--layers N`` keeps the config's widths and serves its first N layers
 (a depth cut, where the full model's weights do not fit the card).  The
 dense, MoE, MLA, VLM (text prompts) and SSM families serve; the hybrid
-and encoder-decoder families raise ``NotImplementedError``.
+and encoder-decoder families have no prefill, so it exits, as the
+reference's launcher does.
 
 ``--em`` switches to the sharded entity-resolution service instead: one
 :class:`repro_torch.stream.shard.ShardCoordinator` replica a process.
@@ -98,6 +99,8 @@ def main(argv=None) -> list[list[int]] | str:
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = get_model(cfg)
+    if api.prefill is None:
+        raise SystemExit(f"{cfg.name} ({cfg.family}) has no prefill path")
     engine = demo_engine(api, batch=args.batch, s_max=args.s_max, device=args.device)
 
     rng = np.random.default_rng(0)

@@ -1,5 +1,5 @@
-"""Transformer building blocks (bf16 compute): GQA and MLA attention, RoPE
-and M-RoPE, the MLP.
+"""Transformer building blocks (bf16 compute): GQA, MLA and cross
+attention, RoPE and M-RoPE, RMSNorm and LayerNorm, the MLP.
 
 Conventions, the reference's (``repro.models.layers``):
   * parameters are read as ``p[name]``, from a plain dict of tensors or
@@ -12,10 +12,9 @@ Conventions, the reference's (``repro.models.layers``):
   * decode uses a KV cache ``[B, n_kv, S_max, hd]`` written at ``pos[0]``.
 
 One device has no mesh, so the reference's sharding pins
-(``shard_batch``, ``shard_spec``) have no counterpart here.  MLA,
-M-RoPE, cross attention, ``layernorm``, ``chunked_attention`` and
-``softmax_xent`` wait for the families and the training slice that use
-them (``ROADMAP.md`` Queue 1 items 10 and 11).
+(``shard_batch``, ``shard_spec``) have no counterpart here.
+``softmax_xent`` waits for the training slice (``ROADMAP.md`` Queue 1
+item 11).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import ops as flash
-from repro_torch.models.param import PSpec
+from repro_torch.models.param import PSpec, in_bf16
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e9
@@ -52,7 +51,7 @@ def mixed_einsum(spec, a, b):
     return torch.einsum(spec, a.float(), b.float())
 
 
-def unported(what: str, item: int = 10):
+def unported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
@@ -69,6 +68,19 @@ def rmsnorm(scale, x, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm_spec(d: int) -> dict:
+    return {"scale": PSpec((d,), (), init="ones"), "bias": PSpec((d,), (), init="zeros")}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """LayerNorm with bias (Whisper); statistics, scale and bias in f32."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def embed_spec(vocab: int, d: int) -> PSpec:
@@ -143,7 +155,7 @@ def attention_specs(cfg: ModelConfig) -> dict:
         p["bq"] = PSpec((h * hd,), ("model",), init="zeros")
         p["bk"] = PSpec((hkv * hd,), ("model",), init="zeros")
         p["bv"] = PSpec((hkv * hd,), ("model",), init="zeros")
-    return p
+    return in_bf16(p)
 
 
 def _qkv(cfg: ModelConfig, p, x):
@@ -235,6 +247,19 @@ def attention_train(cfg: ModelConfig, p, x, positions, *, causal: bool = True):
     return _attend(cfg, p, q, k, v, x.dtype, causal=causal)
 
 
+def cross_attention_train(cfg: ModelConfig, p, x, memory):
+    """Encoder-decoder cross attention, x (B,S,D) over memory (B,T,D): no
+    positions, no mask, and, as in the reference, no q/k/v biases (the
+    decode path's cross cache and query add them)."""
+    B, S, _ = x.shape
+    T = memory.shape[1]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.matmul(x, mp(p["wq"])).reshape(B, S, h, hd)
+    k = torch.matmul(memory, mp(p["wk"])).reshape(B, T, hkv, hd)
+    v = torch.matmul(memory, mp(p["wv"])).reshape(B, T, hkv, hd)
+    return _attend(cfg, p, q, k, v, x.dtype, causal=False)
+
+
 def attention_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
     """bf16 KV cache (B, Hkv, s_max, hd) a layer, with the reference's
     logical axes: batch on data and heads or sequence on model."""
@@ -298,13 +323,15 @@ def mla_specs(cfg: ModelConfig) -> dict:
     qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "q_down": PSpec((d, qr), (None, None)),
+        **in_bf16({
+            "q_down": PSpec((d, qr), (None, None)),
+            "q_up": PSpec((qr, h * (dn + dr)), (None, "model")),
+            "kv_down": PSpec((d, kr + dr), (None, None)),
+            "kv_up": PSpec((kr, h * (dn + dv)), (None, "model")),
+            "wo": PSpec((h * dv, d), ("model", None)),
+        }),
         "q_norm": rmsnorm_spec(qr),
-        "q_up": PSpec((qr, h * (dn + dr)), (None, "model")),
-        "kv_down": PSpec((d, kr + dr), (None, None)),
         "kv_norm": rmsnorm_spec(kr),
-        "kv_up": PSpec((kr, h * (dn + dv)), (None, "model")),
-        "wo": PSpec((h * dv, d), ("model", None)),
     }
 
 
@@ -403,16 +430,16 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     if cfg.act == "silu":  # gated: fused [gate; up]
-        return {
+        return in_bf16({
             "w_in": PSpec((d, 2 * f), (None, "model")),
             "w_out": PSpec((f, d), ("model", None)),
-        }
-    return {
+        })
+    return in_bf16({
         "w_in": PSpec((d, f), (None, "model")),
         "b_in": PSpec((f,), ("model",), init="zeros"),
         "w_out": PSpec((f, d), ("model", None)),
         "b_out": PSpec((d,), (), init="zeros"),
-    }
+    })
 
 
 def mlp(cfg: ModelConfig, p, x):

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mp
-from repro_torch.models.param import PSpec
+from repro_torch.models.param import PSpec, in_bf16
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -34,7 +34,6 @@ def moe_specs(cfg: ModelConfig) -> dict:
     f = cfg.moe_d_ff or cfg.d_ff
     e = cfg.n_experts
     specs = {
-        "router": PSpec((d, e), (None, None), scale=0.02),
         "w_in": PSpec((e, d, 2 * f), ("model", "data", None)),
         "w_out": PSpec((e, f, d), ("model", None, "data")),
     }
@@ -42,7 +41,7 @@ def moe_specs(cfg: ModelConfig) -> dict:
         fs = cfg.shared_d_ff or f * cfg.n_shared_experts
         specs["shared_w_in"] = PSpec((d, 2 * fs), ("data", "model"))
         specs["shared_w_out"] = PSpec((fs, d), ("model", "data"))
-    return specs
+    return {"router": PSpec((d, e), (None, None), scale=0.02), **in_bf16(specs)}
 
 
 def _capacity(tokens_per_group: int, cfg: ModelConfig, factor: float = 1.25) -> int:

@@ -4,7 +4,8 @@ Models declare their parameters as a tree (nested ``dict``) of
 :class:`PSpec`.  From that one declaration come
 
 * ``init_params``  — materialized tensors on a device, one explicit
-  ``torch.Generator`` per leaf;
+  ``torch.Generator`` per leaf, each leaf cast to its declared dtype as it
+  is drawn (:func:`in_bf16` declares the leaves a model computes with);
 * ``param_count``  — the exact parameter count.
 
 A loaded model is a tree of :class:`Params` modules, read as ``p[name]``
@@ -76,6 +77,14 @@ def stack(n: int, tree):
     )
 
 
+def in_bf16(tree):
+    """``tree`` with every leaf declared bf16: the projections, biases and
+    expert weights that the families' ``load`` casts to bf16.  The leaves a
+    model reads in f32 (``F32_LEAVES``, embeddings, LM heads, norms,
+    learned positions) keep the default f32."""
+    return spec_tree_map(lambda ps: dataclasses.replace(ps, dtype=torch.bfloat16), tree)
+
+
 def _leaf_seed(seed: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
 
@@ -110,6 +119,10 @@ def init_params(tree, seed: int = 0, device=None):
     Leaf ``i`` (in sorted-key order) draws from its own generator on the
     device, seeded from ``(seed, i)``, under the reference's init laws:
     normal with scale 1/sqrt(fan_in), embeddings at 0.02, zeros, ones.
+    Each leaf is drawn in f32 and cast to its declared dtype at once, so
+    the peak is the tree at its declared dtypes plus the largest leaf in
+    f32; a bf16 leaf holds the values ``load`` would have cast from an f32
+    draw.
     The draws are not JAX's: tests that need the reference's weights
     carry them across (``interop.lm_params_from_numpy``).
     """
@@ -144,8 +157,9 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
 def layer_group(stacked: dict, i: int) -> Params:
     """Layer ``i``'s slice of a stacked parameter group.  Projections and
     biases go to bf16 once, here (the reference keeps f32 masters and casts
-    them with mp() at every use, which gives the same numbers); the leaves
-    in ``F32_LEAVES`` stay f32, copied out of the stacked tensor."""
+    them with mp() at every use, which gives the same numbers); a leaf
+    already drawn in bf16 is kept as a view of its stacked tensor.  The
+    leaves in ``F32_LEAVES`` stay f32, copied out of the stacked tensor."""
     g = Params()
     for name in sorted(stacked):
         leaf = stacked[name][i]

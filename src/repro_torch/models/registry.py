@@ -5,15 +5,16 @@
   * ``param_specs()``                  — PSpec tree (shapes, axes, init laws)
   * ``load(tree)``                     — the model holding a materialized tree
   * ``decode(params, cache, batch)``   — single-token serve step
-  * ``prefill(params, tokens, s_max)`` — prompt pass filling the KV cache
+  * ``prefill(params, tokens, s_max)`` — prompt pass filling the KV cache,
+    ``None`` for a family with no prefill (the hybrid, the encoder-decoder)
   * ``cache_specs(batch, s_max)``      — decode-state PSpec tree
   * ``input_specs(shape)``             — ``(shape, dtype)`` record per input
 
-The dense (MLA included), MoE, VLM and SSM families are ported; the
-hybrid and encoder-decoder families raise ``NotImplementedError``
-(``ROADMAP.md`` Queue 1 item 10), and so does ``loss`` (item 11).  The
-VLM's vision tower is a stub, as in the reference: its training inputs
-carry precomputed patch embeddings.
+Every family is ported: dense (MLA included), MoE, VLM, SSM, hybrid and
+encoder-decoder.  ``loss`` raises ``NotImplementedError`` (``ROADMAP.md``
+Queue 1 item 11).  The modality frontends are stubs, as in the reference:
+the VLM's training inputs carry precomputed patch embeddings, the
+encoder-decoder's precomputed audio frame embeddings.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.layers import unported
 
 
@@ -46,7 +47,7 @@ class ModelAPI:
     load: Callable[[dict], torch.nn.Module]
     decode: Callable[[Any, Any, dict], tuple]
     cache_specs: Callable[[int, int], Any]
-    prefill: Callable[..., tuple]
+    prefill: Callable[..., tuple] | None
     loss: Callable[[Any, dict], tuple] = _no_loss
 
     # -- inputs -----------------------------------------------------------
@@ -62,6 +63,8 @@ class ModelAPI:
                 (B, cfg.vision_patches, cfg.vision_dim), torch.bfloat16)
             specs["vision_pos"] = InputSpec((B, cfg.vision_patches), i32)
             specs["positions"] = InputSpec((3, B, S), i32)
+        if cfg.family == "encdec":
+            specs["frames"] = InputSpec((B, cfg.encoder_frames, cfg.d_model), torch.bfloat16)
         return specs
 
     def demo_batch(self, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
@@ -89,8 +92,10 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         mod = transformer
     elif fam == "ssm":
         mod = ssm_lm
-    elif fam in ("hybrid", "encdec"):
-        raise unported(f"the {fam} family")
+    elif fam == "hybrid":
+        mod = hybrid
+    elif fam == "encdec":
+        mod = encdec
     else:
         raise ValueError(f"unknown family {fam!r}")
     return ModelAPI(
@@ -99,5 +104,9 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         load=lambda tree: mod.load(cfg, tree),
         decode=lambda params, cache, batch: mod.decode_step(cfg, params, cache, batch),
         cache_specs=lambda batch, s_max: mod.cache_specs(cfg, batch, s_max),
-        prefill=lambda params, tokens, s_max: mod.prefill(cfg, params, tokens, s_max),
+        prefill=(
+            (lambda params, tokens, s_max: mod.prefill(cfg, params, tokens, s_max))
+            if hasattr(mod, "prefill")
+            else None
+        ),
     )

@@ -24,21 +24,23 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mp
-from repro_torch.models.param import PSpec
+from repro_torch.models.param import PSpec, in_bf16
 
 
 def ssm_specs(cfg: ModelConfig) -> dict:
     d, di, n, r, c = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     return {
-        "in_proj": PSpec((d, 2 * di), ("data", "model")),
-        "conv_w": PSpec((di, c), ("model", None), scale=0.5),
-        "conv_b": PSpec((di,), ("model",), init="zeros"),
-        "x_proj": PSpec((di, r + 2 * n), ("model", None)),
-        "dt_proj": PSpec((r, di), (None, "model")),
-        "dt_bias": PSpec((di,), ("model",), init="ssm_dt"),
+        **in_bf16({
+            "in_proj": PSpec((d, 2 * di), ("data", "model")),
+            "conv_w": PSpec((di, c), ("model", None), scale=0.5),
+            "conv_b": PSpec((di,), ("model",), init="zeros"),
+            "x_proj": PSpec((di, r + 2 * n), ("model", None)),
+            "dt_proj": PSpec((r, di), (None, "model")),
+            "dt_bias": PSpec((di,), ("model",), init="ssm_dt"),
+            "out_proj": PSpec((di, d), ("model", "data")),
+        }),
         "A_log": PSpec((di, n), ("model", None), init="ssm_a"),
         "D": PSpec((di,), ("model",), init="ones"),
-        "out_proj": PSpec((di, d), ("model", "data")),
     }
 
 

@@ -39,7 +39,9 @@ from repro_torch.models.layers import (
     rmsnorm_spec,
     unembed,
 )
-from repro_torch.models.param import Params, PSpec, frozen, layer_group, spec_tree_map, stack
+from repro_torch.models.param import (
+    Params, PSpec, frozen, in_bf16, layer_group, spec_tree_map, stack,
+)
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
@@ -59,7 +61,7 @@ def param_specs(cfg: ModelConfig) -> dict:
         "ln_f": rmsnorm_spec(cfg.d_model),
     }
     if cfg.vision_dim:
-        specs["vision_proj"] = PSpec((cfg.vision_dim, cfg.d_model), (None, "model"))
+        specs["vision_proj"] = in_bf16(PSpec((cfg.vision_dim, cfg.d_model), (None, "model")))
     if not cfg.tie_embeddings:
         specs["lm_head"] = embed_spec(cfg.vocab_size, cfg.d_model)
     return specs

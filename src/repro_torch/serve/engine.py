@@ -30,6 +30,7 @@ class Engine:
     """Serves ``api``'s model ``params`` on ``device`` (``None``: CUDA)."""
 
     def __init__(self, api: ModelAPI, params, batch: int, s_max: int, device=None):
+        assert api.prefill is not None, f"{api.cfg.family} has no prefill"
         self.device = resolve_device(device)
         self.api = api
         self.params = params.to(self.device)

@@ -28,6 +28,8 @@ assert {{
     "repro_torch.stream.wal", "repro_torch.checkpoint.checkpointer",
     "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.stream.shard",
     "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.models.ssm_lm",
+    "repro_torch.models.hybrid", "repro_torch.models.encdec", "repro_torch.data.corpus",
+    "repro_torch.data.dedup",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -60,8 +62,8 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-# the modules of the matcher registry, of serving and durability, and of
-# the MoE and SSM model families
+# the modules of the matcher registry, of serving and durability, of the
+# MoE, SSM, hybrid and encoder-decoder model families, and of corpus dedup
 NEW_MODULES = [
     "src/repro_torch/core/matchers/__init__.py",
     "src/repro_torch/core/matchers/assignment.py",
@@ -74,6 +76,10 @@ NEW_MODULES = [
     "src/repro_torch/models/moe.py",
     "src/repro_torch/models/ssm.py",
     "src/repro_torch/models/ssm_lm.py",
+    "src/repro_torch/models/hybrid.py",
+    "src/repro_torch/models/encdec.py",
+    "src/repro_torch/data/corpus.py",
+    "src/repro_torch/data/dedup.py",
 ]
 
 

@@ -30,7 +30,7 @@ from repro_torch.configs import base  # noqa: E402
 from repro_torch.models import layers, param, registry, transformer  # noqa: E402
 
 DENSE = ["yi_6b", "qwen1_5_0_5b", "qwen2_72b"]
-UNPORTED = ["jamba_v0_1_52b", "whisper_medium"]  # the hybrid and encdec families
+DECODE_ONLY = ["jamba_v0_1_52b", "whisper_medium"]  # the hybrid and encdec: no prefill
 BF16 = dict(rtol=1e-2, atol=1e-2)
 LOGITS = dict(rtol=2e-2, atol=2e-2)
 
@@ -95,10 +95,9 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ref_base.ARCH_IDS)
 def test_param_count_full_configs(arch):
-    """The port's count of the reference's declaration equals the reference's;
-    for every ported family the port declares the same tree itself (shapes,
-    init laws, axis names); the hybrid and encdec families raise until they
-    are ported."""
+    """The port's count of the reference's declaration equals the reference's,
+    and for every family the port declares the same tree itself (shapes,
+    init laws, axis names)."""
     ref_specs = ref_registry.get_model(ref_base.get_config(arch)).param_specs()
     want = ref_param.param_count(ref_specs)
     carried = jax.tree.map(
@@ -107,10 +106,6 @@ def test_param_count_full_configs(arch):
     )
     assert param.param_count(carried) == want
     cfg = base.get_config(arch)
-    if arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-            registry.get_model(cfg)
-        return
     specs = registry.get_model(cfg).param_specs()
     assert param.param_count(specs) == want
     got, ref = _flat(specs), _flat(carried)
@@ -175,11 +170,19 @@ def test_state_dict_keys_name_reference_leaves(dense_models):
     assert sd["layers.0.attn.wq"].dtype == torch.bfloat16 and sd["embed"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", DECODE_ONLY)
 def test_unported_variants_raise(arch):
-    for cfg in (base.get_config(arch), base.smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-            registry.get_model(cfg)
+    """The hybrid and encdec families have no prefill, as in the reference:
+    ``prefill`` is None and ``Engine`` refuses them."""
+    from repro_torch.serve import engine
+
+    for which in ("get_config", "smoke_config"):
+        api = registry.get_model(getattr(base, which)(arch))
+        assert api.prefill is None
+        assert ref_registry.get_model(getattr(ref_base, which)(arch)).prefill is None
+    with pytest.raises(AssertionError, match=f"{api.cfg.family} has no prefill"):
+        engine.Engine(api, api.load(param.init_params(api.param_specs(), device="cpu")),
+                      batch=2, s_max=16, device="cpu")
 
 
 def test_loss_is_not_ported():

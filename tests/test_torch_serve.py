@@ -123,6 +123,6 @@ def test_launcher_modes_not_ported(capsys):
     digest = serve.main(["--em", "--device", "cpu", "--scale", "0.02", "--batches", "2"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("shard 0/1: ") and f"digest {digest[:12]} (replicas agree)" in line
-    for arch in ("jamba_v0_1_52b", "whisper_medium"):  # the hybrid and encdec families
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for arch in ("jamba_v0_1_52b", "whisper_medium"):  # the hybrid and encdec: no prefill
+        with pytest.raises(SystemExit, match="has no prefill path"):
             serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
