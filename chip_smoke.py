@@ -148,9 +148,32 @@
    tokens and a request's decode-step logits, each within 2e-2; served at 24
    + 24 layers: ``encode``, ``build_cross_cache``, a 4-token prompt as decode
    steps and 8 greedy tokens, ``flash_attn`` launched 24 times, non-causal.
-13. Profile: the first 100 MMP evaluations once more under
+13. Train (``train``): ``flash_attn`` under autograd first: at Qwen1.5-0.5B's
+   training shape, Yi-6B's heads, Whisper's cross attention and MiniCPM3's
+   MLA (through ``layers.attend``'s padding), the kernel inside the autograd
+   Function ``FlashAttention``, whose dq, dk and dv (its blocked backward)
+   must be within 2e-3 of autograd of ``attention_plain`` (max |d| / max
+   |ref|), with the forward kernel, the blocked backward and SDPA's forward
+   and backward timed.  Then Qwen1.5-0.5B at full width and 2 layers on the
+   card against the CPU from one seed-0 draw: loss and every gradient within
+   2e-2, every attention projection's gradient nonzero.  Then
+   Qwen1.5-0.5B at full width and depth (24 layers) through
+   ``repro_torch.train.trainer.Trainer``: batch 8 x 2,048 in 2 microbatches,
+   ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``, 8 steps with
+   a checkpoint at step 4, then a restart from that checkpoint to step 8:
+   the restarted losses within 1e-5 relative of the uninterrupted ones, the
+   last loss below the first, and ``flash_attn`` launched 24 x 2 x 2 = 96
+   times a step (forward and remat recompute).  The counters are set to 0
+   before the Trainer runs and read after them.  Prints each step's loss,
+   ms, tokens/s, peak memory and launches (the steps are timed without the
+   profiler), then the device's busy share of one more step under
+   ``torch.profiler``, and a microbatch's forward, backward and AdamW
+   times.  Last
+   ``python -m repro_torch.launch.train --arch qwen1_5_0_5b --steps 2
+   --batch 8 --seq 2048 --microbatches 2`` as a subprocess, which must exit 0.
+14. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-14. The card's name and power limit, the kernel list as one JSON line, and
+15. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -644,7 +667,9 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     # forward_train against the CPU (S=128) and served (S=2,048), Whisper's
     # non-causal encoder over 1,500 frames (1,500 is not a multiple of the
     # 64-key tile: the masked key tail and the TMA box past T), its cross
-    # attention (S=32 over T=1,500) and its causal decoder), then the
+    # attention (S=32 over T=1,500) and its causal decoder); the train phase's
+    # Qwen1.5-0.5B microbatch (B=4, S=2,048), its card-vs-CPU check (B=2,
+    # S=256) and its autograd check at Yi-6B's heads (S=2,048, 32/4), then the
     # reference test's f32 shapes, a ragged S = T, and a causal S < T
     for B, S, T, H, hkv, hd, dtype, causal, mla in [
         (4, 32, 32, 32, 4, 128, torch.bfloat16, True, None),
@@ -662,6 +687,9 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (4, 1500, 1500, 16, 16, 64, torch.bfloat16, False, None),
         (4, 32, 1500, 16, 16, 64, torch.bfloat16, False, None),
         (4, 32, 32, 16, 16, 64, torch.bfloat16, True, None),
+        (4, 2048, 2048, 16, 16, 64, torch.bfloat16, True, None),
+        (2, 256, 256, 16, 16, 64, torch.bfloat16, True, None),
+        (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
@@ -2656,6 +2684,342 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     return total
 
 
+# the train phase: Qwen1.5-0.5B (hf:Qwen/Qwen1.5-0.5B) at full width and depth
+TRAIN_ARCH = "qwen1_5_0_5b"
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4, 8, 2048, 2
+TRAIN_RESTART_TOL = 1e-5  # relative: the embedding backward's atomics (index_add_)
+# the autograd Function's dq, dk, dv against autograd of attention_plain:
+# (label, B, S, T, H, Hkv, hd, causal, MLA (q.k dim, v dim) padded to hd)
+FLASH_GRAD_SHAPES = [
+    ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, True, None),
+    ("Yi-6B", 1, 2048, 2048, 32, 4, 128, True, None),
+    ("Whisper cross", 4, 32, 1500, 16, 16, 64, False, None),
+    ("MiniCPM3 MLA", 1, 4096, 4096, 40, 40, 128, True, (96, 64)),
+]
+FLASH_GRAD_TOL = 2e-3  # max |d| / max |ref|, the kernel's contract
+
+
+def eager_ms(fn, iters: int = 5) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``iters`` eager
+    calls after one warm-up (for calls that run autograd, which a CUDA graph
+    does not capture)."""
+    fn()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    return _events_ms(run) / iters
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def flash_grad_check(dev, label, B, S, T, H, hkv, hd, causal, mla) -> dict:
+    """``flash.attention`` under autograd on the card (the kernel inside
+    ``FlashAttention``) against autograd of ``attention_plain`` on the same
+    bf16 inputs (through ``layers.attend``'s padding for MLA).  The Function's
+    bf16 gradients must equal its blocked backward in f32 rounded to bf16,
+    and those f32 gradients the plain version's within ``FLASH_GRAD_TOL``.
+    Then the forward kernel, the blocked backward, and SDPA's forward and
+    backward are timed on the same input."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(5)
+    hq, hv = mla or (hd, hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal((B, n, h, d)).astype(np.float32),
+                               device=dev).to(torch.bfloat16).requires_grad_()
+               for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
+    do = torch.as_tensor(rng.standard_normal((B, S, H * hv)).astype(np.float32), device=dev)
+    scale = 1.0 / np.sqrt(hq)
+
+    def through(attn, q, k, v):
+        if mla is None:
+            return attn(q, k, v, scale, causal=causal)
+        pad = [F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v)]
+        o = attn(*pad, scale, causal=causal)
+        return o.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv)
+
+    before = flash.attention.launches
+    if mla is None:
+        o = flash.attention(q, k, v, scale, causal=causal)
+    else:
+        o = layers.attend(q, k, v, scale, torch.float32, causal=causal)
+    require(flash.attention.launches == before + 1 and o.grad_fn is not None,
+            f"{label}: flash_attn did not launch inside the autograd Function")
+    got = torch.autograd.grad(o, (q, k, v), do)
+    # the Function's backward in f32 (before its cast to bf16), and the plain
+    # version's autograd, on f32 copies of the same inputs (MLA: padded as attend pads)
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    pq, pk, pv = (F.pad(t.detach(), (0, hd - t.shape[-1])) for t in (q32, k32, v32))
+    with torch.no_grad():
+        o_pad = flash.attention(*(t.to(torch.bfloat16) for t in (pq, pk, pv)), scale,
+                                causal=causal)
+    do_pad = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).reshape(B, S, H * hd)
+    f32 = flash.attention_backward_blocked(pq, pk, pv, o_pad, do_pad, scale, causal)
+    f32 = [g[..., :t.shape[-1]] for g, t in zip(f32, (q, k, v))]
+    want = torch.autograd.grad(through(flash.attention_plain, q32, k32, v32),
+                               (q32, k32, v32), do)
+    errs = {}
+    for name, g, g32, w in zip("qkv", got, f32, want):
+        require(g.dtype == torch.bfloat16 and torch.equal(g, g32.to(torch.bfloat16)),
+                f"{label}: d{name} is not the blocked backward's f32 gradient in bf16")
+        errs[f"d{name}"] = _rel(g32, w)
+        require(errs[f"d{name}"] <= FLASH_GRAD_TOL,
+                f"{label}: d{name} differs from the plain version's by {errs[f'd{name}']:.3g}"
+                f" > {FLASH_GRAD_TOL}")
+    del got, f32, want, q32, k32, v32
+    _free(dev)
+
+    # timing on the padded bf16 input the kernel takes (MLA: q, k, v at hd)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (pq, pk, pv))
+    ob, dob = o_pad, do_pad
+    st = [t.transpose(1, 2).detach().requires_grad_() for t in (qb, kb, vb)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*st, is_causal=causal, scale=scale,
+                                              enable_gqa=True)
+
+    so = sdpa()
+    sdo = dob.reshape(B, S, H, hd).transpose(1, 2).to(torch.bfloat16)
+    with torch.no_grad():
+        kernel_ms = eager_ms(lambda: flash.attention(qb, kb, vb, scale, causal=causal))
+    backward_ms = eager_ms(lambda: flash.attention_backward_blocked(
+        qb, kb, vb, ob, dob, scale, causal))
+    with torch.no_grad():
+        sdpa_ms = eager_ms(sdpa)
+    sdpa_bwd_ms = eager_ms(lambda: torch.autograd.grad(so, st, sdo, retain_graph=True))
+    pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
+    esize = 2
+    io = esize * (B * S * H * hd + 2 * B * T * hkv * hd)
+    fwd_bound = bound(io + 4 * B * S * H * hd, 4 * B * H * hd * pairs, PEAK_BF16_FLOPS)
+    # backward: reads q, k, v (bf16), o and dO (f32); writes dq, dk, dv (bf16);
+    # five products of 2 * hd flops a (row, col) pair: scores, dV, dP, dQ, dK
+    bwd_bytes = io + 2 * 4 * B * S * H * hd + io
+    bwd_bound = bound(bwd_bytes, 10 * B * H * hd * pairs, PEAK_BF16_FLOPS)
+    bwd_bound_f32 = bound(bwd_bytes, 10 * B * H * hd * pairs, PEAK_F32_FLOPS)
+    del q, k, v, qb, kb, vb, ob, st, so
+    _free(dev)
+    return dict(label=label, errs=errs, kernel_ms=kernel_ms, backward_ms=backward_ms,
+                sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms, fwd_bound=fwd_bound,
+                bwd_bound=bwd_bound, bwd_bound_f32=bwd_bound_f32)
+
+
+def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
+    """The loss and every gradient of ``cfg`` on the card against the CPU,
+    from one seed-0 draw (every leaf in f32) carried to both, on one
+    ``demo_batch``.  Returns the loss's relative difference, each leaf's
+    max |d| / max |g_cpu|, the largest attention-projection gradients on the
+    card, and the ``flash_attn`` launches of the card's loss and backward."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.param import in_f32, init_params
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    cpu = torch.device("cpu")
+    tree = init_params(in_f32(api.param_specs()), seed=0, device=dev)
+    host_tree = _tree_to(tree, cpu)
+    data = api.demo_batch(ShapeConfig("t", seq, batch, "train"))
+    out = {}
+    for name, d, t in [("card", dev, tree), ("cpu", cpu, host_tree)]:
+        model = api.load(t, trainable=True)
+        names, params = zip(*model.named_parameters())
+        _zero_counts()
+        loss, _ = api.loss(model, {k: torch.as_tensor(v, device=d) for k, v in data.items()})
+        grads = torch.autograd.grad(loss, params)
+        _sync(d)
+        out[name] = (float(loss), {n: g.float().cpu() for n, g in zip(names, grads)},
+                     _read_counts()["flash_attn"])
+        del model, params, grads, loss
+    del tree, host_tree
+    _free(dev)
+    (card_loss, card_g, launches), (cpu_loss, cpu_g, _) = out["card"], out["cpu"]
+    rel = {n: _rel(card_g[n], cpu_g[n]) for n in cpu_g}
+    proj = {n: float(card_g[n].abs().max()) for n in card_g
+            if ".attn." in n and n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}
+    return dict(loss=(card_loss, cpu_loss), loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss),
+                rel=rel, proj=proj, launches=launches)
+
+
+def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
+    """LM training on the card: the ``flash_attn`` autograd Function, the
+    card against the CPU at 2 layers, Qwen1.5-0.5B trained through
+    ``Trainer`` with a restart, and the launcher.  Returns the launch counts
+    of the Trainer runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.launch.sharding import default_remat_group
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_step import make_train_step, split_microbatches
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    for shape in FLASH_GRAD_SHAPES:
+        r = flash_grad_check(dev, *shape)
+        log(f"[train] flash_attn autograd {r['label']} {shape[1:]}: dq/dk/dv vs plain "
+            + ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
+            + f" (limit {FLASH_GRAD_TOL}); forward kernel {r['kernel_ms']:.4f} ms (bound "
+            f"{r['fwd_bound'][0]:.5f}, {r['fwd_bound'][1]}), SDPA forward {r['sdpa_ms']:.4f}; "
+            f"blocked backward {r['backward_ms']:.4f} ms (bound {r['bwd_bound'][0]:.5f} "
+            f"{r['bwd_bound'][1]} at the bf16 peak, {r['bwd_bound_f32'][0]:.5f} at the f32 "
+            f"peak), SDPA backward {r['sdpa_bwd_ms']:.4f} ms (eager, CUDA events)")
+
+    base_cfg = get_config(TRAIN_ARCH)
+    cmp = train_card_vs_cpu(dev, dataclasses.replace(base_cfg, n_layers=2))
+    worst = max(cmp["rel"], key=cmp["rel"].get)
+    log(f"[train] {base_cfg.name} at 2 layers, card vs CPU (B=2, S=256): loss "
+        f"{cmp['loss'][0]:.6f} / {cmp['loss'][1]:.6f} (relative {cmp['loss_rel']:.3g}); "
+        f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
+        f"{LM_REL_TOL}; attention projections' max |g| on the card: smallest "
+        f"{min(cmp['proj'].values()):.3g} ({min(cmp['proj'], key=cmp['proj'].get)}); "
+        f"flash_attn launches {cmp['launches']}")
+    require(cmp["loss_rel"] <= LM_REL_TOL, f"train loss card vs CPU {cmp['loss_rel']:.3g}")
+    bad = {n: e for n, e in cmp["rel"].items() if not e <= LM_REL_TOL}
+    require(not bad, f"gradients card vs CPU over {LM_REL_TOL}: {bad}")
+    require(len(cmp["proj"]) == 2 * 7 and all(g > 0 for g in cmp["proj"].values()),
+            f"an attention projection has no gradient on the card: {cmp['proj']}")
+    require(cmp["launches"] == 2 * 2, f"flash_attn launched {cmp['launches']} times in the "
+            "2-layer loss and backward, expected 4 (forward and recompute)")
+
+    n_layers = layers or base_cfg.n_layers
+    cfg = dataclasses.replace(base_cfg, n_layers=n_layers,
+                              remat_group=default_remat_group(n_layers))
+    api = get_model(cfg)
+    data = CorpusConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
+    root = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
+    per_launch = n_layers * micro * 2  # forward and remat recompute
+    records: list = []
+
+    def trainer(ckpt_dir, n):
+        t = Trainer(api, data, opt_cfg, TrainerConfig(
+            steps=n, ckpt_every=TRAIN_CKPT_AT, log_every=1, microbatches=micro,
+            ckpt_dir=str(ckpt_dir), keep_ckpts=3), device=dev)
+        step_fn = t.step_fn
+
+        def timed(model, opt, b):
+            """One step, synchronized, on the host clock (no profiler)."""
+            _sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = flash.attention.launches
+            t0 = time.perf_counter()
+            out = step_fn(model, opt, b)
+            loss = float(out[2]["loss"])
+            _sync(dev)
+            records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                                launches=flash.attention.launches - before,
+                                peak=torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else 0))
+            return out
+        t.step_fn = timed
+        return t
+
+    try:
+        _zero_counts()
+        full = trainer(root / "full", steps).run()
+        full_losses, full_wall = full["losses"], full["wall_time_s"]
+        del full  # the first run's model and moments, before the restart's
+        _free(dev)
+        restart_dir = root / "restart"
+        shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
+                        restart_dir / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
+        shutil.rmtree(root / "full")
+        resumed_t = trainer(restart_dir, steps)
+        resumed = resumed_t.run()
+        launches = _read_counts()
+        wgmma = _wrappers()["flash_attn"].wgmma_launches
+        for i, r in enumerate(records):
+            step = i + 1 if i < steps else TRAIN_CKPT_AT + i - steps + 1
+            log(f"[train] {'run' if i < steps else 'restart'} step {step}: loss {r['loss']:.6f}, "
+                f"{r['ms']:.1f} ms, {batch * seq / r['ms'] * 1e3:.0f} tokens/s, peak "
+                f"{r['peak'] / 2**30:.2f} GiB, flash_attn {r['launches']}")
+        require(all(r["launches"] == per_launch for r in records),
+                f"flash_attn launched {[r['launches'] for r in records]} times a step, "
+                f"expected {per_launch} ({n_layers} layers x {micro} microbatches x 2)")
+        require(launches["flash_attn"] == wgmma == per_launch * len(records),
+                f"flash_attn launches {launches['flash_attn']} (tensor cores {wgmma}), "
+                f"expected {per_launch * len(records)}")
+        losses = [x for _, x in full_losses]
+        require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        again = dict(resumed["losses"])
+        diffs = {s: abs(again[s] - x) / abs(x) for s, x in full_losses if s > TRAIN_CKPT_AT}
+        require(sorted(again) == list(range(TRAIN_CKPT_AT + 1, steps + 1))
+                and max(diffs.values()) <= TRAIN_RESTART_TOL,
+                f"restarted losses differ: {again} vs {full_losses}")
+        log(f"[train] {cfg.name}, {n_layers} layers, remat_group {cfg.remat_group}, batch "
+            f"{batch} x {seq} in {micro} microbatches: losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over {steps} steps ({full_wall:.1f} s, checkpoint saves "
+            f"included); restart at step {TRAIN_CKPT_AT}: steps {sorted(again)}, largest "
+            f"relative loss difference from the uninterrupted run {max(diffs.values()):.3g} "
+            f"(limit {TRAIN_RESTART_TOL}: deterministic algorithms are not set, so the "
+            f"embedding backward's index_add_ atomics may move the last bits)")
+
+        # not counted: the device's busy share of one more step under
+        # torch.profiler, and how a microbatch's step splits between
+        # forward, backward (with the remat recompute) and AdamW
+        model, opt = resumed["params"], resumed["opt"]
+        step_fn = make_train_step(api, opt_cfg, microbatches=micro)
+        split = {k: torch.as_tensor(v, device=dev) for k, v in
+                 split_microbatches(resumed_t.data.batch(steps), micro).items()}
+        log(f"[train] one more step under torch.profiler: device busy "
+            f"{_device_busy(dev, lambda: step_fn(model, opt, split))}")
+        b = {k: torch.as_tensor(v, device=dev) for k, v in
+             resumed_t.data.batch(steps).items()}
+        mb = {k: v[: batch // micro] for k, v in b.items()}
+        params = dict(model.named_parameters())
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, _ = api.loss(model, mb)
+        _sync(dev)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _sync(dev)
+        t2 = time.perf_counter()
+        adamw_update(opt_cfg, params, dict(zip(params, grads)), opt)
+        _sync(dev)
+        t3 = time.perf_counter()
+        log(f"[train] one microbatch of "
+            f"{batch // micro} x {seq}: forward {(t1 - t0) * 1e3:.1f} ms, backward (remat "
+            f"recompute included) {(t2 - t1) * 1e3:.1f} ms; AdamW over "
+            f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters "
+            f"{(t3 - t2) * 1e3:.1f} ms (host clock, synchronized)")
+        del model, opt, grads, params, resumed, resumed_t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free(dev)
+
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+            "--steps", "2", "--batch", str(batch), "--seq", str(seq),
+            "--microbatches", str(micro)]
+    if dev.type != "cuda":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=str(ROOT), capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    log(f"[train] {' '.join(argv[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(proc.stdout.strip().splitlines()))
+    require(proc.returncode == 0, f"the train launcher failed: {proc.stderr[-2000:]}")
+    log(f"[train] launches in the Trainer runs: {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     """Where the matcher's time goes: the first ``max_evals`` MMP evaluations
     (cover excluded) once more under torch.profiler, device activity only;
@@ -2742,6 +3106,7 @@ def main(argv: list[str] | None = None) -> int:
     shard_launches = phase_shard(dev)
     lm_launches = phase_lm(dev)
     families_launches = phase_lm_families(dev)
+    train_launches = phase_train(dev)
     phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
@@ -2762,7 +3127,7 @@ def main(argv: list[str] | None = None) -> int:
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
                       + stream_launches[name] + matchers_launches[name] + dedup_launches[name]
                       + serving_launches[name] + shard_launches[name] + lm_launches[name]
-                      + families_launches[name]),
+                      + families_launches[name] + train_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
@@ -2770,7 +3135,8 @@ def main(argv: list[str] | None = None) -> int:
                               "dedup": dedup_launches[name],
                               "serving": serving_launches[name],
                               "shard": shard_launches[name], "lm": lm_launches[name],
-                              "lm_families": families_launches[name]},
+                              "lm_families": families_launches[name],
+                              "train": train_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

@@ -61,9 +61,12 @@ def _key(path) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of ``leaf``: never a view of the caller's memory, so an
+    async save writes the state as it was when ``save`` was called, even
+    when the caller then updates a CPU tensor in place."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
 
 
 def _flatten(tree) -> dict[str, np.ndarray]:

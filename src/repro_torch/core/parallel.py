@@ -68,7 +68,7 @@ every rank grounds whole bins and takes its slice, so the cache's
 counters equal the one-rank run's.  A one-rank mesh (``mesh=None``) has
 no collective.  ``build_round_fn``/``build_bin_round_fn``, which the
 reference keeps for its multi-pod dry-run, wait for the TPU tooling
-(``ROADMAP.md`` Queue 1 item 11).
+(``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ the Zipf draws come from :func:`zipf`, numpy 2.0's sampler written over
 the generator's uniform doubles, where ``Generator.zipf`` itself changed
 its algorithm in a later release and draws other corpora there.
 
-The loader that places batches on a device mesh comes with the training
-slice (``ROADMAP.md`` Queue 1 item 11).
+:class:`Loader` prefetches batches on the host.  Placing them on a
+device mesh (``shard_batch``) waits for the multi-device slice
+(``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -130,3 +131,34 @@ def make_documents(cfg: CorpusConfig, n_docs: int) -> tuple[list[np.ndarray], np
             z = zipf(rng, cfg.zipf_a, n)
             docs.append((z % (cfg.vocab_size - 1)).astype(np.int32) + 1)
     return docs, dup_of
+
+
+def shard_batch(batch: dict[str, np.ndarray], mesh, data_axes=("data",)):
+    """Placing a host batch onto a device mesh needs the multi-device slice."""
+    raise NotImplementedError("shard_batch is not ported yet (ROADMAP.md Queue 1 item 15)")
+
+
+class Loader:
+    """Prefetching host loader: ``prefetch`` batches are drawn ahead of the
+    one handed out, so batch synthesis can overlap a step.  Yields host
+    (numpy) batches from ``start_step`` on; a ``mesh`` needs
+    :func:`shard_batch`."""
+
+    def __init__(self, cfg: CorpusConfig, mesh=None, prefetch: int = 2,
+                 start_step: int = 0, data_axes=("data",)):
+        if mesh is not None:
+            shard_batch({}, mesh, data_axes)
+        self.stream = TokenStream(cfg)
+        self.prefetch = prefetch
+        self.start_step = start_step
+
+    def __iter__(self):
+        import collections
+
+        q: collections.deque = collections.deque()
+        step = self.start_step
+        while True:
+            while len(q) <= self.prefetch:
+                q.append(self.stream.batch(step))
+                step += 1
+            yield q.popleft()

@@ -1,5 +1,5 @@
 """Carry state across from numpy: MLN weights, packed covers, groundings,
-LM parameters.
+LM parameters and training state.
 
 Every function reads its source's attributes by name and copies them as
 numpy arrays, so state made by any producer with the same field names —
@@ -64,17 +64,49 @@ def grounding_from_arrays(src) -> GlobalGrounding:
     )
 
 
+def _tensors(tree, device):
+    """f32 tensors on ``device`` of a tree of numpy leaves."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
 def lm_params_from_numpy(cfg, tree, device=None):
     """The port's model for ``cfg`` holding the values of ``tree``: a
     parameter tree shaped as the reference's (nested dicts, the stacked
     layer axis first) with numpy leaves.  ``device=None`` means CUDA."""
     from repro_torch.models.registry import get_model
 
+    return get_model(cfg).load(_tensors(tree, resolve_device(device)))
+
+
+def train_state_from_numpy(cfg, params_tree, opt_tree=None, device=None) -> dict:
+    """``{"params": model, "opt": {"m", "v", "step"}}``: the port's trainable
+    model for ``cfg`` (f32 masters) holding ``params_tree``, and its
+    optimizer state from ``opt_tree`` (the reference's ``{"m", "v",
+    "step"}`` of stacked trees; ``None``: zeros), all numpy leaves."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import state_from_tree
+
     dev = resolve_device(device)
+    opt = None
+    if opt_tree is not None:
+        opt = {"m": _tensors(opt_tree["m"], dev), "v": _tensors(opt_tree["v"], dev),
+               "step": torch.tensor(np.asarray(opt_tree["step"], np.int32), device=dev)}
+    return state_from_tree(get_model(cfg), _tensors(params_tree, dev), opt)
 
-    def convert(t):
-        if isinstance(t, dict):
-            return {k: convert(v) for k, v in t.items()}
-        return torch.tensor(np.asarray(t, dtype=np.float32), device=dev)
 
-    return get_model(cfg).load(convert(tree))
+def train_state_to_numpy(model, opt=None) -> tuple[dict, dict | None]:
+    """The reference's numpy trees of a training state: the stacked
+    parameter tree of ``model``, and ``opt`` as ``{"m", "v", "step"}``
+    (``None`` without ``opt``)."""
+    from repro_torch.train.trainer import checkpoint_state
+
+    state = _numpy(checkpoint_state(model, opt))
+    return state["params"], state.get("opt")

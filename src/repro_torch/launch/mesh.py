@@ -24,10 +24,10 @@ always go through a gloo group made beside the device group.  Every
 group gets a timeout (``REPRO_SHARD_TIMEOUT_S``, default 300 s), so a
 rank that dies does not leave the others blocked for gloo's 30 minutes.
 
-This is the EM half of the reference's ``repro.launch.mesh``;
-``make_production_mesh``, ``pod_spec``, ``data_sharding`` and
-``param_sharding`` serve training and the dry-run and wait for them
-(``ROADMAP.md`` Queue 1 item 11).
+This is the EM half of the reference's ``repro.launch.mesh``; its GSPMD
+half, ``make_production_mesh``, ``pod_spec``, ``data_sharding`` and
+``param_sharding``, lays training and the dry-run over a device mesh, and
+each raises until the multi-device slice (``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -43,8 +43,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.common import mesh_spans_processes, resolve_device
+from repro_torch.models.param import unported_fn
 
 DEFAULT_TIMEOUT_S = 300.0
+
+make_production_mesh = unported_fn("make_production_mesh", item=15)
+pod_spec = unported_fn("pod_spec", item=15)
+data_sharding = unported_fn("data_sharding", item=15)
+param_sharding = unported_fn("param_sharding", item=15)
 
 # the process group this process joined (init_em_distributed), and the
 # meshes made on it: one gloo host group a (device, axis), because

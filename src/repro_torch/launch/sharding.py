@@ -7,13 +7,15 @@ deterministic hash of each bucket (:func:`bucket_shard`,
 by a cross-rank union (:class:`ShardMerger`).  The bin rows of the
 round-parallel engine are split by :mod:`repro_torch.core.parallel`.
 
-This is the EM half of the reference's ``repro.launch.sharding``.  Its
-LM half — ``fsdp_spec``, ``strip_model``, ``dp_over_model_spec``,
-``fsdp_params``, ``cast_params``, ``drop_indivisible``,
-``input_shardings``, ``state_shardings``, ``param_shardings``,
-``pick_microbatches`` and ``default_remat_group`` — serves only the
-training and dry-run launchers, and waits for them (``ROADMAP.md``
-Queue 1 item 11).
+This is the EM half of the reference's ``repro.launch.sharding``, and
+its launch heuristics :func:`pick_microbatches` and
+:func:`default_remat_group`.  The GSPMD half of its LM side —
+``data_axis_size``, ``fsdp_spec``, ``strip_model``,
+``dp_over_model_spec``, ``fsdp_params``, ``cast_params``,
+``drop_indivisible``, ``input_shardings``, ``state_shardings`` and
+``param_shardings`` — lays parameters and inputs
+over a device mesh; each raises until the multi-device slice
+(``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.kernels.common import mesh_spans_processes
+from repro_torch.models.param import unported_fn
 
 _FNV_OFFSET = 0xCBF29CE484222325
 _FNV_PRIME = 0x100000001B3
@@ -109,3 +112,47 @@ class ShardMerger:
         padded[: len(local)] = local
         merged = self._gather(padded)
         return set(merged[merged >= 0].tolist())
+
+
+# ---------------------------------------------------------------------------
+# Launch heuristics
+# ---------------------------------------------------------------------------
+
+
+def pick_microbatches(global_batch: int, data_shards: int, seq_len: int,
+                      target_tokens: int = 8192) -> int:
+    """Largest microbatch count keeping >= target tokens/device/microbatch.
+
+    More microbatches => less live activation memory per grad-accum step
+    but shorter matmuls; ~8k tokens per device per microbatch keeps the
+    matrix units fed while bounding the remat working set.
+    """
+    b_loc = max(global_batch // max(data_shards, 1), 1)
+    best = 1
+    for mb in range(1, b_loc + 1):
+        if b_loc % mb:
+            continue
+        if (b_loc // mb) * seq_len >= target_tokens:
+            best = mb
+    return best
+
+
+def default_remat_group(n_layers: int) -> int:
+    """Largest divisor of L that is <= ceil(sqrt(L)) (O(sqrt L) schedule)."""
+    top = int(np.ceil(np.sqrt(n_layers)))
+    for g in range(top, 1, -1):
+        if n_layers % g == 0:
+            return g
+    return 1
+
+
+data_axis_size = unported_fn("data_axis_size", item=15)
+fsdp_spec = unported_fn("fsdp_spec", item=15)
+strip_model = unported_fn("strip_model", item=15)
+dp_over_model_spec = unported_fn("dp_over_model_spec", item=15)
+fsdp_params = unported_fn("fsdp_params", item=15)
+cast_params = unported_fn("cast_params", item=15)
+drop_indivisible = unported_fn("drop_indivisible", item=15)
+input_shardings = unported_fn("input_shardings", item=15)
+state_shardings = unported_fn("state_shardings", item=15)
+param_shardings = unported_fn("param_shardings", item=15)

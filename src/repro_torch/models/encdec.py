@@ -17,10 +17,15 @@ The reference's own asymmetry is kept on purpose: the cross attention of
 :func:`decode_train` adds no q/k/v biases, while :func:`build_cross_cache`
 adds ``bk``/``bv`` and :func:`_cross_decode` adds ``bq``.  With nonzero
 biases the two paths give different logits for the same tokens.
+
+Training (:func:`loss_fn`) checkpoints the encoder's and the decoder's
+layer loops in groups of ``cfg.remat_group``
+(:mod:`repro_torch.models.scan_utils`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,9 +47,11 @@ from repro_torch.models.layers import (
     mlp,
     mlp_specs,
     mp,
+    softmax_xent,
     unembed,
 )
-from repro_torch.models.param import Params, PSpec, frozen, layer_group, stack
+from repro_torch.models.param import Params, PSpec, f32_param, layer_group, stack
+from repro_torch.models.scan_utils import stacked_scan
 
 
 def enc_layer_specs(cfg: ModelConfig) -> dict:
@@ -80,12 +87,12 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _norm(src: dict, i: int | None = None) -> Params:
+def _norm(src: dict, i: int | None = None, trainable: bool = False) -> Params:
     """A LayerNorm's scale and bias in f32 (layer ``i`` of a stacked one)."""
     g = Params()
     for name in ("scale", "bias"):
         t = src[name] if i is None else src[name][i]
-        g.register_parameter(name, frozen(t.float().clone()))
+        g.register_parameter(name, f32_param(t.clone(), trainable))
     return g
 
 
@@ -93,36 +100,37 @@ class EncDecLM(Params):
     """The encoder-decoder's parameters from a reference-shaped tree:
     ``enc_layers.<i>.{ln1, attn, ln2, ffn}``, ``dec_layers.<i>.{ln1,
     self_attn, ln_x, cross_attn, ln2, ffn}``.  The learned positions,
-    LayerNorm scales and biases and the (tied) embedding stay f32."""
+    LayerNorm scales and biases and the (tied) embedding stay f32
+    (``trainable``: every leaf an f32 master)."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.enc_pos = frozen(tree["enc_pos"].float())
-        self.embed = frozen(tree["embed"].float())
-        self.dec_pos = frozen(tree["dec_pos"].float())
+        self.enc_pos = f32_param(tree["enc_pos"], trainable)
+        self.embed = f32_param(tree["embed"], trainable)
+        self.dec_pos = f32_param(tree["dec_pos"], trainable)
         self.enc_layers = nn.ModuleList(
-            self._layer(tree["enc_layers"], i, norms=("ln1", "ln2"), groups=("attn", "ffn"))
+            self._layer(tree["enc_layers"], i, ("ln1", "ln2"), ("attn", "ffn"), trainable)
             for i in range(cfg.encoder_layers))
-        self.enc_ln_f = _norm(tree["enc_ln_f"])
+        self.enc_ln_f = _norm(tree["enc_ln_f"], trainable=trainable)
         self.dec_layers = nn.ModuleList(
-            self._layer(tree["dec_layers"], i, norms=("ln1", "ln_x", "ln2"),
-                        groups=("self_attn", "cross_attn", "ffn"))
+            self._layer(tree["dec_layers"], i, ("ln1", "ln_x", "ln2"),
+                        ("self_attn", "cross_attn", "ffn"), trainable)
             for i in range(cfg.n_layers))
-        self.dec_ln_f = _norm(tree["dec_ln_f"])
+        self.dec_ln_f = _norm(tree["dec_ln_f"], trainable=trainable)
 
     @staticmethod
-    def _layer(stacked: dict, i: int, norms, groups) -> Params:
+    def _layer(stacked: dict, i: int, norms, groups, trainable: bool) -> Params:
         layer = Params()
         for name in norms:
-            setattr(layer, name, _norm(stacked[name], i))
+            setattr(layer, name, _norm(stacked[name], i, trainable))
         for name in groups:
-            setattr(layer, name, layer_group(stacked[name], i))
+            setattr(layer, name, layer_group(stacked[name], i, trainable))
         return layer
 
 
-def load(cfg: ModelConfig, tree: dict) -> EncDecLM:
-    return EncDecLM(cfg, tree)
+def load(cfg: ModelConfig, tree: dict, trainable: bool = False) -> EncDecLM:
+    return EncDecLM(cfg, tree, trainable)
 
 
 def _attn_full(cfg: ModelConfig, p, x, *, causal: bool):
@@ -130,12 +138,17 @@ def _attn_full(cfg: ModelConfig, p, x, *, causal: bool):
     return attention_train(cfg, p, x, None, causal=causal)
 
 
+def _enc_layer(cfg: ModelConfig, lp, x):
+    x = x + _attn_full(cfg, lp["attn"], layernorm(lp["ln1"], x, cfg.norm_eps), causal=False)
+    x = x + mlp(cfg, lp["ffn"], layernorm(lp["ln2"], x, cfg.norm_eps))
+    return x, torch.zeros((), device=x.device)
+
+
 def encode(cfg: ModelConfig, params, frames):
     """frames (B, F, D) stub embeddings -> encoder memory (B, F, D) bf16."""
     x = mp(frames) + mp(params["enc_pos"][: frames.shape[1]])[None]
-    for lp in params["enc_layers"]:
-        x = x + _attn_full(cfg, lp["attn"], layernorm(lp["ln1"], x, cfg.norm_eps), causal=False)
-        x = x + mlp(cfg, lp["ffn"], layernorm(lp["ln2"], x, cfg.norm_eps))
+    x, _ = stacked_scan(functools.partial(_enc_layer, cfg), x, params["enc_layers"],
+                        cfg.remat_group)
     return layernorm(params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -143,7 +156,8 @@ def _dec_layer_train(cfg: ModelConfig, lp, x, memory):
     x = x + _attn_full(cfg, lp["self_attn"], layernorm(lp["ln1"], x, cfg.norm_eps), causal=True)
     x = x + cross_attention_train(
         cfg, lp["cross_attn"], layernorm(lp["ln_x"], x, cfg.norm_eps), memory)
-    return x + mlp(cfg, lp["ffn"], layernorm(lp["ln2"], x, cfg.norm_eps))
+    x = x + mlp(cfg, lp["ffn"], layernorm(lp["ln2"], x, cfg.norm_eps))
+    return x, torch.zeros((), device=x.device)
 
 
 def decode_train(cfg: ModelConfig, params, tokens, memory):
@@ -151,9 +165,16 @@ def decode_train(cfg: ModelConfig, params, tokens, memory):
     encoder memory."""
     S = tokens.shape[1]
     x = embed_lookup(params["embed"], tokens) + mp(params["dec_pos"][:S])[None]
-    for lp in params["dec_layers"]:
-        x = _dec_layer_train(cfg, lp, x, memory)
+    x, _ = stacked_scan(functools.partial(_dec_layer_train, cfg), x, params["dec_layers"],
+                        cfg.remat_group, memory)
     return layernorm(params["dec_ln_f"], x, cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    memory = encode(cfg, params, batch["frames"])
+    hidden = decode_train(cfg, params, batch["tokens"], memory)
+    loss = softmax_xent(logits_of(cfg, params, hidden), batch["labels"])
+    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 def logits_of(cfg: ModelConfig, params, hidden):

@@ -11,10 +11,14 @@ Decode carries a heterogeneous cache: each period holds 7 SSM states and
 one KV cache, updated in place.  As in the reference there is no
 ``prefill``: a prompt is fed as decode steps from a zero cache.  Each
 attention sublayer of ``forward_train`` runs the ``flash_attn`` kernel;
-Jamba uses no positional encoding.
+Jamba uses no positional encoding.  With grad mode on, ``forward_train``
+checkpoints each period (one period is already remat-group sized), as
+the reference's ``stacked_scan`` over periods does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -33,9 +37,11 @@ from repro_torch.models.layers import (
     mlp_specs,
     rmsnorm,
     rmsnorm_spec,
+    softmax_xent,
     unembed,
 )
-from repro_torch.models.param import Params, frozen, layer_group, stack
+from repro_torch.models.param import Params, f32_param, layer_group, stack
+from repro_torch.models.scan_utils import stacked_scan
 
 
 def _period(cfg: ModelConfig) -> int:
@@ -82,31 +88,32 @@ class HybridLM(Params):
     """The hybrid's parameters from a reference-shaped tree (``embed``,
     ``periods`` stacked on their first axis, ``ln_f``, ``lm_head``):
     ``periods.<p>.l<i>.{ln1, mixer, ln2, ffn}``.  Norm scales, the
-    embedding, the LM head and ``param.F32_LEAVES`` stay f32."""
+    embedding, the LM head and ``param.F32_LEAVES`` stay f32
+    (``trainable``: every leaf an f32 master)."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = frozen(tree["embed"].float())
+        self.embed = f32_param(tree["embed"], trainable)
         stacked = tree["periods"]
         periods = []
         for p in range(_n_periods(cfg)):
             period = Params()
             for i in range(_period(cfg)):
                 src, layer = stacked[f"l{i}"], Params()
-                layer.ln1 = frozen(src["ln1"][p].float())
-                layer.mixer = layer_group(src["mixer"], p)
-                layer.ln2 = frozen(src["ln2"][p].float())
-                layer.ffn = layer_group(src["ffn"], p)
+                layer.ln1 = f32_param(src["ln1"][p], trainable)
+                layer.mixer = layer_group(src["mixer"], p, trainable)
+                layer.ln2 = f32_param(src["ln2"][p], trainable)
+                layer.ffn = layer_group(src["ffn"], p, trainable)
                 setattr(period, f"l{i}", layer)
             periods.append(period)
         self.periods = nn.ModuleList(periods)
-        self.ln_f = frozen(tree["ln_f"].float())
-        self.lm_head = frozen(tree["lm_head"].float())
+        self.ln_f = f32_param(tree["ln_f"], trainable)
+        self.lm_head = f32_param(tree["lm_head"], trainable)
 
 
-def load(cfg: ModelConfig, tree: dict) -> HybridLM:
-    return HybridLM(cfg, tree)
+def load(cfg: ModelConfig, tree: dict, trainable: bool = False) -> HybridLM:
+    return HybridLM(cfg, tree, trainable)
 
 
 def _ffn(cfg: ModelConfig, i: int, p, h):
@@ -136,11 +143,15 @@ def forward_train(cfg: ModelConfig, params, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = embed_lookup(params["embed"], tokens)
-    aux = torch.zeros((), device=x.device)
-    for p in params["periods"]:
-        x, a = _period_train(cfg, p, x, positions)
-        aux = aux + a
+    body = functools.partial(_period_train, cfg)
+    x, aux = stacked_scan(body, x, params["periods"], 0, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    hidden, aux = forward_train(cfg, params, batch["tokens"])
+    loss = softmax_xent(logits_of(cfg, params, hidden), batch["labels"])
+    return loss + cfg.router_aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 def logits_of(cfg: ModelConfig, params, hidden):

@@ -12,9 +12,8 @@ Conventions, the reference's (``repro.models.layers``):
   * decode uses a KV cache ``[B, n_kv, S_max, hd]`` written at ``pos[0]``.
 
 One device has no mesh, so the reference's sharding pins
-(``shard_batch``, ``shard_spec``) have no counterpart here.
-``softmax_xent`` waits for the training slice (``ROADMAP.md`` Queue 1
-item 11).
+(``shard_batch``, ``shard_spec``) have no counterpart here; they come
+with the multi-device slice (``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -49,10 +48,6 @@ def mixed_einsum(spec, a, b):
     """bf16 x bf16 -> f32 contraction, with the operands upcast first (the
     reference's CPU form).  On CUDA float32 products run in full float32."""
     return torch.einsum(spec, a.float(), b.float())
-
-
-def unported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +89,18 @@ def embed_lookup(table, ids):
 def unembed(table, x):
     """Logits in f32 from the f32 table."""
     return torch.matmul(x.float(), table.float().T)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-mean cross entropy in f32. labels (B,S) int, mask (B,S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,19 @@ Models declare their parameters as a tree (nested ``dict``) of
 * ``param_count``  — the exact parameter count.
 
 A loaded model is a tree of :class:`Params` modules, read as ``p[name]``
-the way the layer functions read the reference's parameter dicts.
+the way the layer functions read the reference's parameter dicts.  A
+served model holds frozen leaves at their compute dtypes
+(:func:`layer_group`); a trainable one (``load(..., trainable=True)``)
+holds every leaf as an f32 master :func:`master`, cast with ``mp()`` at
+each use, as the reference trains.  :func:`stacked_tree` and
+:func:`layer_slices` carry a model's per-layer tensors to the reference's
+stacked tree and back.
 
 ``PSpec.spec`` names the logical mesh axes of each dimension as a plain
 tuple (``("model", None)``); one device has no mesh, so nothing reads
 it yet.  The mesh and dry-run machinery of the reference
 (``abstract_params``, ``filter_spec``, ``shardings``) waits for the
-sharded slices (``ROADMAP.md`` Queue 1 items 9 and 11).
+multi-device slice (``ROADMAP.md`` Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -83,6 +89,31 @@ def in_bf16(tree):
     model reads in f32 (``F32_LEAVES``, embeddings, LM heads, norms,
     learned positions) keep the default f32."""
     return spec_tree_map(lambda ps: dataclasses.replace(ps, dtype=torch.bfloat16), tree)
+
+
+def in_f32(tree):
+    """``tree`` with every leaf declared f32: the training draw, in the
+    reference's dtype (its ``init_params`` draws every leaf in f32)."""
+    return spec_tree_map(lambda ps: dataclasses.replace(ps, dtype=torch.float32), tree)
+
+
+def unported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def unported_fn(name: str, item: int):
+    """A stand-in for the reference's function ``name`` that raises
+    :func:`unported`."""
+    def stub(*args, **kwargs):
+        raise unported(name, item)
+
+    stub.__name__ = stub.__qualname__ = name
+    return stub
+
+
+abstract_params = unported_fn("abstract_params", item=15)
+filter_spec = unported_fn("filter_spec", item=15)
+shardings = unported_fn("shardings", item=15)
 
 
 def _leaf_seed(seed: int, index: int) -> int:
@@ -154,15 +185,75 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def layer_group(stacked: dict, i: int) -> Params:
-    """Layer ``i``'s slice of a stacked parameter group.  Projections and
-    biases go to bf16 once, here (the reference keeps f32 masters and casts
-    them with mp() at every use, which gives the same numbers); a leaf
-    already drawn in bf16 is kept as a view of its stacked tensor.  The
-    leaves in ``F32_LEAVES`` stay f32, copied out of the stacked tensor."""
+def master(t: torch.Tensor) -> nn.Parameter:
+    """A trainable f32 copy of ``t``: the reference's f32 master, cast with
+    mp() at each use."""
+    return nn.Parameter(t.detach().float().clone(), requires_grad=True)
+
+
+def f32_param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
+    """A leaf the model reads in f32 (norms, embeddings, heads)."""
+    return master(t) if trainable else frozen(t.float())
+
+
+def layer_group(stacked: dict, i: int, trainable: bool = False) -> Params:
+    """Layer ``i``'s slice of a stacked parameter group.
+
+    Served (``trainable=False``): projections and biases go to bf16 once,
+    here (the reference keeps f32 masters and casts them with mp() at
+    every use, which gives the same numbers); a leaf already drawn in bf16
+    is kept as a view of its stacked tensor.  The leaves in ``F32_LEAVES``
+    stay f32, copied out of the stacked tensor.  Trainable: every leaf an
+    f32 :func:`master`."""
     g = Params()
     for name in sorted(stacked):
         leaf = stacked[name][i]
-        leaf = leaf.float().clone() if name in F32_LEAVES else leaf.to(torch.bfloat16)
-        g.register_parameter(name, frozen(leaf))
+        if trainable:
+            leaf = master(leaf)
+        elif name in F32_LEAVES:
+            leaf = frozen(leaf.float().clone())
+        else:
+            leaf = frozen(leaf.to(torch.bfloat16))
+        g.register_parameter(name, leaf)
     return g
+
+
+def _split_key(key: str) -> tuple[tuple[str, ...], int | None]:
+    """A state-dict key's path in the reference's tree and its layer index:
+    ``"layers.3.attn.wq"`` -> ``(("layers", "attn", "wq"), 3)``."""
+    parts = key.split(".")
+    index = [int(p) for p in parts if p.isdigit()]
+    return tuple(p for p in parts if not p.isdigit()), (index[0] if index else None)
+
+
+def stacked_tree(flat: dict) -> dict:
+    """The reference-shaped tree of per-layer tensors keyed by state-dict
+    names: each key's numeric part is its index on the stacked axis
+    (``layers.3.attn.wq`` is ``tree["layers"]["attn"]["wq"][3]``)."""
+    groups: dict = {}
+    for key, t in flat.items():
+        path, i = _split_key(key)
+        groups.setdefault(path, []).append((i, t))
+    tree: dict = {}
+    for path, items in groups.items():
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        if items[0][0] is None:
+            node[path[-1]] = items[0][1]
+        else:
+            node[path[-1]] = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
+    return tree
+
+
+def layer_slices(tree: dict, keys) -> dict:
+    """The inverse of :func:`stacked_tree`: each state-dict key's tensor,
+    read out of the stacked ``tree`` (a view of its stacked leaf)."""
+    out = {}
+    for key in keys:
+        path, i = _split_key(key)
+        node = tree
+        for name in path:
+            node = node[name]
+        out[key] = node if i is None else node[i]
+    return out

@@ -3,7 +3,9 @@
 ``get_model(cfg)`` returns a :class:`ModelAPI` exposing
 
   * ``param_specs()``                  — PSpec tree (shapes, axes, init laws)
-  * ``load(tree)``                     — the model holding a materialized tree
+  * ``load(tree, trainable=False)``    — the model holding a materialized tree
+    (``trainable``: f32 master parameters that require gradients)
+  * ``loss(params, batch)``            — train objective: (loss, {"xent", "aux"})
   * ``decode(params, cache, batch)``   — single-token serve step
   * ``prefill(params, tokens, s_max)`` — prompt pass filling the KV cache,
     ``None`` for a family with no prefill (the hybrid, the encoder-decoder)
@@ -11,8 +13,9 @@
   * ``input_specs(shape)``             — ``(shape, dtype)`` record per input
 
 Every family is ported: dense (MLA included), MoE, VLM, SSM, hybrid and
-encoder-decoder.  ``loss`` raises ``NotImplementedError`` (``ROADMAP.md``
-Queue 1 item 11).  The modality frontends are stubs, as in the reference:
+encoder-decoder.  ``input_pspecs`` (the inputs' mesh axes) waits for the
+multi-device slice (``ROADMAP.md`` Queue 1 item 15).  The modality
+frontends are stubs, as in the reference:
 the VLM's training inputs carry precomputed patch embeddings, the
 encoder-decoder's precomputed audio frame embeddings.
 """
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models.layers import unported
+from repro_torch.models.param import unported_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +39,15 @@ class InputSpec:
     dtype: torch.dtype
 
 
-def _no_loss(params, batch):
-    raise unported("training", item=11)
-
-
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ModelConfig
     param_specs: Callable[[], Any]
-    load: Callable[[dict], torch.nn.Module]
+    load: Callable[..., torch.nn.Module]
+    loss: Callable[[Any, dict], tuple]
     decode: Callable[[Any, Any, dict], tuple]
     cache_specs: Callable[[int, int], Any]
     prefill: Callable[..., tuple] | None
-    loss: Callable[[Any, dict], tuple] = _no_loss
 
     # -- inputs -----------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> dict[str, InputSpec]:
@@ -66,6 +65,8 @@ class ModelAPI:
         if cfg.family == "encdec":
             specs["frames"] = InputSpec((B, cfg.encoder_frames, cfg.d_model), torch.bfloat16)
         return specs
+
+    input_pspecs = unported_fn("input_pspecs", item=15)
 
     def demo_batch(self, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
         """Concrete random inputs matching input_specs (smoke tests), drawn
@@ -101,7 +102,8 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         param_specs=lambda: mod.param_specs(cfg),
-        load=lambda tree: mod.load(cfg, tree),
+        load=lambda tree, trainable=False: mod.load(cfg, tree, trainable),
+        loss=lambda params, batch: mod.loss_fn(cfg, params, batch),
         decode=lambda params, cache, batch: mod.decode_step(cfg, params, cache, batch),
         cache_specs=lambda batch, s_max: mod.cache_specs(cfg, batch, s_max),
         prefill=(

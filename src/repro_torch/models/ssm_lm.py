@@ -5,18 +5,25 @@ RMSNorm -> unembed.  The decode state is O(1) a token (conv window and
 SSM state, :mod:`repro_torch.models.ssm`).  As in the reference,
 ``prefill`` runs the prompt as decode steps, one token at a time; only
 the last step's logits are computed, the only ones it returns.  No layer
-attends, so no path here launches ``flash_attn``.
+attends, so no path here launches ``flash_attn``.  Training
+(:func:`loss_fn`) checkpoints the layer loop in groups of
+``cfg.remat_group`` (:mod:`repro_torch.models.scan_utils`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
-from repro_torch.models.layers import embed_lookup, embed_spec, rmsnorm, rmsnorm_spec, unembed
-from repro_torch.models.param import Params, frozen, layer_group, spec_tree_map, stack
+from repro_torch.models.layers import (
+    embed_lookup, embed_spec, rmsnorm, rmsnorm_spec, softmax_xent, unembed,
+)
+from repro_torch.models.param import Params, f32_param, layer_group, spec_tree_map, stack
+from repro_torch.models.scan_utils import stacked_scan
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
@@ -36,40 +43,52 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 class MambaLM(Params):
     """The SSM LM's parameters from a reference-shaped tree: norms, the
-    embedding, the LM head, ``A_log`` and ``D`` in f32, the rest bf16."""
+    embedding, the LM head, ``A_log`` and ``D`` in f32, the rest bf16
+    (``trainable``: every leaf an f32 master)."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = frozen(tree["embed"].float())
+        self.embed = f32_param(tree["embed"], trainable)
         stacked = tree["layers"]
         layers = []
         for i in range(cfg.n_layers):
             layer = Params()
-            layer.ln = frozen(stacked["ln"][i].float())
-            layer.mixer = layer_group(stacked["mixer"], i)
+            layer.ln = f32_param(stacked["ln"][i], trainable)
+            layer.mixer = layer_group(stacked["mixer"], i, trainable)
             layers.append(layer)
         self.layers = nn.ModuleList(layers)
-        self.ln_f = frozen(tree["ln_f"].float())
+        self.ln_f = f32_param(tree["ln_f"], trainable)
         if not cfg.tie_embeddings:
-            self.lm_head = frozen(tree["lm_head"].float())
+            self.lm_head = f32_param(tree["lm_head"], trainable)
 
 
-def load(cfg: ModelConfig, tree: dict) -> MambaLM:
-    return MambaLM(cfg, tree)
+def load(cfg: ModelConfig, tree: dict, trainable: bool = False) -> MambaLM:
+    return MambaLM(cfg, tree, trainable)
+
+
+def _layer_train(cfg: ModelConfig, p, x):
+    out = x + ssm.ssm_forward(cfg, p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps))
+    return out, torch.zeros((), device=x.device)
 
 
 def forward_train(cfg: ModelConfig, params, tokens):
     """Hidden states (B, S, D) of a full sequence (the chunked scan)."""
     x = embed_lookup(params["embed"], tokens)
-    for lp in params["layers"]:
-        x = x + ssm.ssm_forward(cfg, lp["mixer"], rmsnorm(lp["ln"], x, cfg.norm_eps))
+    x, _ = stacked_scan(functools.partial(_layer_train, cfg), x, params["layers"],
+                        cfg.remat_group)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
 
 def logits_of(cfg: ModelConfig, params, hidden):
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(table, hidden)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    hidden = forward_train(cfg, params, batch["tokens"])
+    loss = softmax_xent(logits_of(cfg, params, hidden), batch["labels"])
+    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:

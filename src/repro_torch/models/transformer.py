@@ -9,9 +9,16 @@ with the layer index split out of the stacked axis.  The reference's
 serves the dense (Yi, Qwen2, Qwen1.5), MLA (MiniCPM3), MoE (Moonshot,
 Llama-4 Scout) and VLM (Qwen2-VL: projected vision patches merged into
 the token stream, M-RoPE positions) families.
+
+Training (:func:`loss_fn`) runs the layer loop through
+:func:`repro_torch.models.scan_utils.stacked_scan`, checkpointed in groups
+of ``cfg.remat_group`` layers, over a model loaded with
+``trainable=True`` (f32 masters cast at use).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -37,11 +44,13 @@ from repro_torch.models.layers import (
     mp,
     rmsnorm,
     rmsnorm_spec,
+    softmax_xent,
     unembed,
 )
 from repro_torch.models.param import (
-    Params, PSpec, frozen, in_bf16, layer_group, spec_tree_map, stack,
+    Params, PSpec, f32_param, frozen, in_bf16, layer_group, master, spec_tree_map, stack,
 )
+from repro_torch.models.scan_utils import stacked_scan
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
@@ -71,31 +80,33 @@ class DecoderLM(Params):
     """The decoder's parameters, loaded from a reference-shaped tree
     (stacked layer axis first).  Norm scales, the embedding and the LM
     head stay f32: ``rmsnorm`` and ``unembed`` read them in f32; so do the
-    layer leaves in ``param.F32_LEAVES``."""
+    layer leaves in ``param.F32_LEAVES``.  ``trainable``: every leaf an f32
+    master (``param.master``)."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = frozen(tree["embed"].float())
+        self.embed = f32_param(tree["embed"], trainable)
         stacked = tree["layers"]
         layers = []
         for i in range(cfg.n_layers):
             layer = Params()
-            layer.ln1 = frozen(stacked["ln1"][i].float())
-            layer.attn = layer_group(stacked["attn"], i)
-            layer.ln2 = frozen(stacked["ln2"][i].float())
-            layer.ffn = layer_group(stacked["ffn"], i)
+            layer.ln1 = f32_param(stacked["ln1"][i], trainable)
+            layer.attn = layer_group(stacked["attn"], i, trainable)
+            layer.ln2 = f32_param(stacked["ln2"][i], trainable)
+            layer.ffn = layer_group(stacked["ffn"], i, trainable)
             layers.append(layer)
         self.layers = nn.ModuleList(layers)
-        self.ln_f = frozen(tree["ln_f"].float())
+        self.ln_f = f32_param(tree["ln_f"], trainable)
         if cfg.vision_dim:
-            self.vision_proj = frozen(mp(tree["vision_proj"]))
+            vp = tree["vision_proj"]
+            self.vision_proj = master(vp) if trainable else frozen(mp(vp))
         if not cfg.tie_embeddings:
-            self.lm_head = frozen(tree["lm_head"].float())
+            self.lm_head = f32_param(tree["lm_head"], trainable)
 
 
-def load(cfg: ModelConfig, tree: dict) -> DecoderLM:
-    return DecoderLM(cfg, tree)
+def load(cfg: ModelConfig, tree: dict, trainable: bool = False) -> DecoderLM:
+    return DecoderLM(cfg, tree, trainable)
 
 
 def _ffn(cfg: ModelConfig, p, x):
@@ -127,10 +138,8 @@ def forward_train(cfg: ModelConfig, params, tokens, positions, extra=None):
         vis = torch.matmul(mp(extra["vision_embeds"]), mp(params["vision_proj"]))
         at = extra["vision_pos"].long()[..., None].expand(-1, -1, x.shape[-1])
         x = x.scatter(1, at, vis)
-    aux = torch.zeros((), device=x.device)
-    for lp in params["layers"]:
-        x, a = _layer_train(cfg, lp, x, positions)
-        aux = aux + a
+    body = functools.partial(_layer_train, cfg)
+    x, aux = stacked_scan(body, x, params["layers"], cfg.remat_group, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
@@ -145,6 +154,21 @@ def make_positions(cfg: ModelConfig, tokens):
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     return pos.expand(3, B, S) if cfg.mrope else pos
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """(total, {"xent", "aux"}): the token-mean cross entropy plus
+    ``router_aux_weight`` times the router's load-balance loss.  ``batch``:
+    tokens, labels, and for the VLM ``positions`` (3, B, S),
+    ``vision_embeds`` and ``vision_pos``."""
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = make_positions(cfg, tokens)
+    extra = {k: batch[k] for k in ("vision_embeds", "vision_pos") if k in batch} or None
+    hidden, aux = forward_train(cfg, params, tokens, positions, extra)
+    loss = softmax_xent(logits_of(cfg, params, hidden), batch["labels"])
+    return loss + cfg.router_aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

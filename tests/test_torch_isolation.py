@@ -29,7 +29,9 @@ assert {{
     "repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.stream.shard",
     "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.models.ssm_lm",
     "repro_torch.models.hybrid", "repro_torch.models.encdec", "repro_torch.data.corpus",
-    "repro_torch.data.dedup",
+    "repro_torch.data.dedup", "repro_torch.models.scan_utils", "repro_torch.train.optimizer",
+    "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.train.compress",
+    "repro_torch.launch.train",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -63,7 +65,8 @@ def test_no_jax_or_reference_import_in_source(path):
 
 
 # the modules of the matcher registry, of serving and durability, of the
-# MoE, SSM, hybrid and encoder-decoder model families, and of corpus dedup
+# MoE, SSM, hybrid and encoder-decoder model families, of corpus dedup, and
+# of training
 NEW_MODULES = [
     "src/repro_torch/core/matchers/__init__.py",
     "src/repro_torch/core/matchers/assignment.py",
@@ -80,6 +83,13 @@ NEW_MODULES = [
     "src/repro_torch/models/encdec.py",
     "src/repro_torch/data/corpus.py",
     "src/repro_torch/data/dedup.py",
+    "src/repro_torch/models/scan_utils.py",
+    "src/repro_torch/train/__init__.py",
+    "src/repro_torch/train/optimizer.py",
+    "src/repro_torch/train/train_step.py",
+    "src/repro_torch/train/trainer.py",
+    "src/repro_torch/train/compress.py",
+    "src/repro_torch/launch/train.py",
 ]
 
 
@@ -271,3 +281,81 @@ def test_durable_service_and_recovery_need_a_gpu_unless_asked_for_cpu(monkeypatc
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ck.restore(1, {"s": {"w": np.zeros(2)}})
     assert ck.restore(1, {"s": {"w": np.zeros(2)}}, device="cpu")["s"]["w"].device.type == "cpu"
+
+
+def test_training_needs_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """The Trainer and the train launcher run on CUDA by default: without a
+    GPU they raise, never fall back."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = get_model(smoke_config("qwen1_5_0_5b"))
+    data = CorpusConfig(vocab_size=512, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(api, data, OptConfig(), TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen1_5_0_5b", "--smoke", "--steps", "1"])
+    t = Trainer(api, data, OptConfig(), TrainerConfig(steps=1), device="cpu")
+    assert t.device.type == "cpu" and t.run()["steps_done"] == 1
+
+
+def _item15_calls():
+    from repro_torch.configs.base import ShapeConfig, smoke_config
+    from repro_torch.data import corpus
+    from repro_torch.launch import mesh, sharding
+    from repro_torch.models import param
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import compress, optimizer, train_step, trainer
+
+    api = get_model(smoke_config("qwen1_5_0_5b"))
+    calls = {
+        "param.abstract_params": lambda: param.abstract_params(api.param_specs()),
+        "param.filter_spec": lambda: param.filter_spec((None,), None),
+        "param.shardings": lambda: param.shardings(api.param_specs(), None),
+        "registry.input_pspecs": lambda: api.input_pspecs(ShapeConfig("t", 8, 2, "train")),
+        "corpus.shard_batch": lambda: corpus.shard_batch({}, object()),
+        "corpus.Loader(mesh=)": lambda: corpus.Loader(corpus.CorpusConfig(), mesh=object()),
+        "train_step.microbatched_specs": lambda: train_step.microbatched_specs({}, {}, 2),
+        "make_train_step(compress_pods=True)": lambda: train_step.make_train_step(
+            api, optimizer.OptConfig(), compress_pods=True),
+        "Trainer(mesh=)": lambda: trainer.Trainer(
+            api, corpus.CorpusConfig(), optimizer.OptConfig(), trainer.TrainerConfig(),
+            mesh=object(), device="cpu"),
+    }
+    for name in ("quantize", "compressed_psum", "tree_compressed_psum", "init_error_state"):
+        calls[f"compress.{name}"] = getattr(compress, name)
+    for name in ("data_axis_size", "fsdp_spec", "strip_model", "dp_over_model_spec",
+                 "fsdp_params", "cast_params", "drop_indivisible", "input_shardings",
+                 "state_shardings", "param_shardings"):
+        calls[f"sharding.{name}"] = getattr(sharding, name)
+    for name in ("make_production_mesh", "pod_spec", "data_sharding", "param_sharding"):
+        calls[f"mesh.{name}"] = getattr(mesh, name)
+    return calls
+
+
+ITEM15 = [
+    "param.abstract_params", "param.filter_spec", "param.shardings", "registry.input_pspecs",
+    "corpus.shard_batch", "corpus.Loader(mesh=)", "train_step.microbatched_specs",
+    "make_train_step(compress_pods=True)", "Trainer(mesh=)", "compress.quantize",
+    "compress.compressed_psum", "compress.tree_compressed_psum", "compress.init_error_state",
+    "sharding.data_axis_size", "sharding.fsdp_spec", "sharding.strip_model",
+    "sharding.dp_over_model_spec", "sharding.fsdp_params", "sharding.cast_params",
+    "sharding.drop_indivisible",
+    "sharding.input_shardings", "sharding.state_shardings", "sharding.param_shardings",
+    "mesh.make_production_mesh", "mesh.pod_spec", "mesh.data_sharding", "mesh.param_sharding",
+]
+
+
+@pytest.mark.parametrize("name", ITEM15)
+def test_multi_device_training_pieces_raise(name):
+    """The multi-device half of training waits for ROADMAP.md Queue 1 item 15:
+    each piece raises, naming the item."""
+    calls = _item15_calls()
+    assert sorted(calls) == sorted(ITEM15)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        calls[name]()

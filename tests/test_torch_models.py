@@ -185,10 +185,8 @@ def test_unported_variants_raise(arch):
                       batch=2, s_max=16, device="cpu")
 
 
-def test_loss_is_not_ported():
+def test_input_specs_and_demo_batch_match_reference():
     api = registry.get_model(base.smoke_config("yi_6b"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.loss(None, {})
     shape = base.ShapeConfig("s", seq_len=8, global_batch=2, kind="train")
     ref_api = ref_registry.get_model(ref_base.smoke_config("yi_6b"))
     for kind in ("train", "decode"):
