@@ -171,9 +171,29 @@
    times.  Last
    ``python -m repro_torch.launch.train --arch qwen1_5_0_5b --steps 2
    --batch 8 --seq 2048 --microbatches 2`` as a subprocess, which must exit 0.
-14. Profile: the first 100 MMP evaluations once more under
+14. Train mesh (``train_mesh``): training over ranks, this script again as
+   2 ranks (``--train-mesh-worker``) on one group sharing the card (gloo),
+   with phase train's model and settings.  (a) ``Trainer`` on a
+   ``("data",)`` ``DeviceMesh`` for 4 steps, a checkpoint at step 2: the
+   losses within ``MESH_LOSS_TOL`` of phase train's (``MESH_STEP1_TOL`` at
+   step 1), every rank's parameters, moments and step equal after every
+   step, ``flash_attn`` 96 times a rank a step.  (b) Elastic restores:
+   phase train's step-4 checkpoint on the 2 ranks (their state equal to the
+   state phase train saved) and step 5; the ranks' step-2 checkpoint in
+   this process on one card (equal to the state the ranks saved) and
+   steps 3-4; the losses within the same limit.  (c) 3 steps of
+   ``make_train_step(compress_pods=True)`` over a ``("pod",)`` mesh of the
+   2 ranks: step 1's loss within 1e-6 of (a)'s, the replicas equal, the
+   error feedback nonzero.  (d) ``compressed_psum`` of 2^20 seeded f32
+   elements a rank, bit for bit against the formula in numpy.  (e)
+   ``python -m repro_torch.launch.train --smoke`` as 2 ranks: exit 0,
+   ``devices=2`` and the same losses on both.  Each rank sets its counters
+   to 0 before a run and reads them after.  Prints each rank's step walls,
+   collective ms and bytes a step, peak memory, and its busy share of one
+   more step under ``torch.profiler``.
+15. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-15. The card's name and power limit, the kernel list as one JSON line, and
+16. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -2849,11 +2869,14 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
 
 
 def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
+                micro: int = TRAIN_MICRO, layers: int | None = None,
+                keep: Path | None = None) -> tuple[dict, dict]:
     """LM training on the card: the ``flash_attn`` autograd Function, the
     card against the CPU at 2 layers, Qwen1.5-0.5B trained through
     ``Trainer`` with a restart, and the launcher.  Returns the launch counts
-    of the Trainer runs."""
+    of the Trainer runs, and for phase ``train_mesh`` the uninterrupted
+    run's losses by step, the state digest at the checkpoint and, with
+    ``keep``, that checkpoint linked into ``keep``."""
     import shutil
     import tempfile
 
@@ -2866,6 +2889,7 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     from repro_torch.models.registry import get_model
     from repro_torch.train.optimizer import OptConfig, adamw_update
     from repro_torch.train.train_step import make_train_step, split_microbatches
+    from repro_torch.train.train_step import state_digest as train_digest
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
@@ -2905,6 +2929,7 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     root = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
     per_launch = n_layers * micro * 2  # forward and remat recompute
     records: list = []
+    kept: dict = {}
 
     def trainer(ckpt_dir, n):
         t = Trainer(api, data, opt_cfg, TrainerConfig(
@@ -2922,6 +2947,8 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
             out = step_fn(model, opt, b)
             loss = float(out[2]["loss"])
             _sync(dev)
+            if int(out[1]["step"]) == TRAIN_CKPT_AT and "digest" not in kept:
+                kept["digest"] = train_digest(out[0], out[1])
             records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
                                 launches=flash.attention.launches - before,
                                 peak=torch.cuda.max_memory_allocated(dev)
@@ -2937,8 +2964,9 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
         del full  # the first run's model and moments, before the restart's
         _free(dev)
         restart_dir = root / "restart"
-        shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
-                        restart_dir / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
+        for d in [restart_dir, keep] if keep is not None else [restart_dir]:
+            shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
+                            d / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
         shutil.rmtree(root / "full")
         resumed_t = trainer(restart_dir, steps)
         resumed = resumed_t.run()
@@ -3017,7 +3045,362 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     require(proc.returncode == 0, f"the train launcher failed: {proc.stderr[-2000:]}")
     log(f"[train] launches in the Trainer runs: {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, dict(losses=dict(full_losses), digest=kept.get("digest"), ckpt=keep)
+
+
+# the train_mesh phase: phase train's model and settings on 2 ranks sharing the card
+MESH_RANKS = 2
+MESH_STEPS, MESH_CKPT_AT, MESH_COMPRESSED_STEPS = 4, 2, 3
+MESH_LOSS_TOL = 2e-3  # relative, steps 2 on, against phase train (PERF.md §6)
+MESH_STEP1_TOL = 1e-3  # relative, step 1 against phase train: the same parameters
+COMPRESSED_STEP1_TOL = 1e-6  # the compressed step's step 1 against the data-parallel one
+PSUM_ELEMS = 1 << 20
+
+
+def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records):
+    """A Trainer whose steps are timed on the host clock (synchronized), with
+    each step's launches, collective seconds and bytes, peak memory and state
+    digest recorded; the first record is the state as restored."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.train.train_step import state_digest as train_digest
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t = Trainer(api, data, opt_cfg, TrainerConfig(
+        steps=steps, ckpt_every=MESH_CKPT_AT, log_every=1, microbatches=micro,
+        ckpt_dir=str(ckpt_dir), keep_ckpts=3), mesh=mesh, device=dev)
+    step_fn = t.step_fn
+
+    def timed(model, opt, b):
+        if not records:
+            records.append(dict(restored=train_digest(model, opt), step=int(opt["step"])))
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = flash.attention.launches
+        t0 = time.perf_counter()
+        out = step_fn(model, opt, b)
+        loss = float(out[2]["loss"])
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        stats = getattr(step_fn, "stats", {"collective_s": 0.0, "bytes": 0})
+        records.append(dict(step=int(out[1]["step"]), ms=ms, loss=loss,
+                            launches=flash.attention.launches - before,
+                            collective_ms=stats["collective_s"] * 1e3, bytes=stats["bytes"],
+                            peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+                            digest=train_digest(out[0], out[1])))
+        return out
+
+    t.step_fn = timed
+    return t
+
+
+def train_mesh_worker(spec_path: str, device: str | None) -> int:
+    """A rank of phase ``train_mesh`` (``REPRO_SHARD_*`` set by the phase):
+    (1) data parallelism, (2) phase train's checkpoint restored and one step,
+    (3) the compressed cross-pod step, (4) ``compressed_psum`` on seeded
+    inputs; prints one ``SHARD_RESULT`` line a job."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data.corpus import CorpusConfig, TokenStream, shard_batch
+    from repro_torch.launch.mesh import init_em_distributed, mesh_device
+    from repro_torch.models.param import in_f32, init_params, leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import compress
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (
+        error_state_of, make_train_step, replicas_agree, split_microbatches)
+    from repro_torch.train.trainer import state_from_tree
+
+    spec = json.loads(Path(spec_path).read_text())
+    init_em_distributed(device=device)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev_type = "cpu" if device == "cpu" else "cuda"
+    mesh = DeviceMesh(dev_type, torch.arange(n), mesh_dim_names=("data",))
+    dev = mesh_device(mesh)
+    who = dict(rank=rank, ranks=n, backend=dist.get_backend(), device=str(dev))
+    api = get_model(_train_cfg(spec["layers"], spec["smoke"]))
+    micro, seq, batch = spec["micro"], spec["seq"], spec["batch"]
+    data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
+
+    # (1) data parallelism, and (2) phase train's checkpoint on 2 ranks
+    for job, ckpt_dir, steps in [("dp", spec["dp_dir"], MESH_STEPS),
+                                 ("restore", spec["train_ckpt"], spec["train_ckpt_at"] + 1)]:
+        records: list = []
+        _zero_counts()
+        out = _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev,
+                            records).run()
+        launches = _read_counts()
+        wgmma = _wrappers()["flash_attn"].wgmma_launches
+        busy = None
+        if job == "dp":  # one more step under the profiler
+            step_fn = make_train_step(api, opt_cfg, microbatches=micro, mesh=mesh)
+            b = shard_batch(split_microbatches(TokenStream(data).batch(steps), micro), mesh,
+                            microbatched=micro > 1)
+            busy = _device_busy(dev, lambda: step_fn(out["params"], out["opt"], b))
+            del step_fn, b
+        _rank_result("train_mesh", job=job, records=records, digests=out["digests"],
+                     launches=launches, wgmma=wgmma, busy=busy, **who)
+        del out
+        _free(dev)
+
+    # (3) the compressed cross-pod step over a ("pod",) mesh of the same ranks
+    pods = DeviceMesh(dev_type, torch.arange(n), mesh_dim_names=("pod",))
+    state = state_from_tree(api, init_params(in_f32(api.param_specs()), seed=0, device=dev))
+    model, opt = state["params"], state["opt"]
+    err = error_state_of(model)
+    step_fn = make_train_step(api, opt_cfg, microbatches=micro, compress_pods=True, mesh=pods)
+    stream = TokenStream(data)
+    records = []
+    _zero_counts()
+    for i in range(MESH_COMPRESSED_STEPS):
+        b = shard_batch(split_microbatches(stream.batch(i), micro), pods, ("pod", "data"),
+                        microbatched=micro > 1)
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model, opt, err, metrics = step_fn(model, opt, err, b)
+        loss = float(metrics["loss"])
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        agree, digest = replicas_agree(dict(model.named_parameters()))
+        err_norm = float(torch.sqrt(sum(torch.sum(e.double() * e.double())
+                                        for e in leaves(err))))
+        records.append(dict(step=i + 1, ms=ms, loss=loss, agree=agree, digest=digest,
+                            err_norm=err_norm, collective_ms=step_fn.stats["collective_s"] * 1e3,
+                            bytes=step_fn.stats["bytes"],
+                            peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                            else 0))
+    _rank_result("train_mesh", job="compressed", records=records, launches=_read_counts(),
+                 **who)
+    del model, opt, err, state
+    _free(dev)
+
+    # (4) compressed_psum on seeded f32 gradients, held to the host's formula by the parent
+    g, e = _psum_inputs(rank)
+    got, resid = compress.compressed_psum(torch.as_tensor(g, device=dev), pods.get_group(),
+                                          torch.as_tensor(e, device=dev))
+    np.savez(Path(spec["psum_out"]) / f"rank{rank}.npz", out=got.cpu().numpy(),
+             err=resid.cpu().numpy())
+    _rank_result("train_mesh", job="psum", **who)
+    dist.destroy_process_group()
+    return 0
+
+
+def _psum_inputs(rank: int) -> tuple[np.ndarray, np.ndarray]:
+    """Rank ``rank``'s seeded f32 gradient and residual for the exchange check."""
+    rng = np.random.default_rng([23, rank])
+    g = (rng.standard_normal(PSUM_ELEMS) * 3.0).astype(np.float32)
+    return g, (rng.standard_normal(PSUM_ELEMS) * 3e-3).astype(np.float32)
+
+
+def psum_on_host(inputs: list[tuple[np.ndarray, np.ndarray]]) -> list[tuple[np.ndarray, ...]]:
+    """``compressed_psum``'s formula in numpy for every rank: the shared
+    scale from the largest |g + err|, round half to even, the residual
+    rounded once, the int32 sum over the ranks, ``total * scale / n``."""
+    f32 = np.float32
+    gs = [g + e for g, e in inputs]
+    amax = max(np.abs(x).max() for x in gs)
+    scale = f32(max(amax, f32(1e-12)) / f32(127.0))
+    qs = [np.clip(np.rint(x / scale), -127, 127).astype(np.int8) for x in gs]
+    total = np.sum([q.astype(np.int32) for q in qs], axis=0, dtype=np.int32)
+    out = total.astype(f32) * scale / f32(len(inputs))
+    return [(out, (x.astype(np.float64) - q.astype(np.float64) * np.float64(scale)).astype(f32))
+            for x, q in zip(gs, qs)]
+
+
+def _train_cfg(layers: int | None, smoke: bool = False):
+    """Phase train's model at ``layers`` (default: full depth); ``smoke``: its
+    reduced config (a CPU rehearsal's ranks)."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.launch.sharding import default_remat_group
+
+    cfg = smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH)
+    n = layers or cfg.n_layers
+    return dataclasses.replace(cfg, n_layers=n, remat_group=default_remat_group(n))
+
+
+def _mesh_log(tag: str, r: dict) -> None:
+    for rec in r["records"]:
+        if "ms" not in rec:
+            continue
+        log(f"[train_mesh] {tag} rank {r['rank']}/{r['ranks']} step {rec['step']}: loss "
+            f"{rec['loss']:.6f}, {rec['ms']:.1f} ms, collectives {rec['collective_ms']:.1f} ms "
+            f"(host clock, synchronized), {rec['bytes'] / 1e9:.3f} GB all-reduced, peak "
+            f"{rec['peak'] / 2**30:.2f} GiB" + (f", flash_attn {rec['launches']}"
+                                                if "launches" in rec else "")
+            + (f", error feedback norm {rec['err_norm']:.6g}" if "err_norm" in rec else ""))
+
+
+def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                     micro: int = TRAIN_MICRO, layers: int | None = None,
+                     smoke: bool = False) -> dict:
+    """Training over a mesh of ranks on the card (see the module docstring).
+    ``train`` is phase train's result: its losses by step, the state digest
+    at its checkpoint and that checkpoint's directory.  Returns the launch
+    counts of the ranks' and this process's Trainer runs."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    api = get_model(_train_cfg(layers, smoke))
+    n_layers = api.cfg.n_layers
+    per_step = n_layers * micro * 2
+    want = train["losses"]
+    dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        (tmp / "psum").mkdir()
+        spec = dict(layers=layers, smoke=smoke, seq=seq, batch=batch, micro=micro,
+                    dp_dir=str(tmp / "dp"),
+                    train_ckpt=str(train["ckpt"]), train_ckpt_at=TRAIN_CKPT_AT,
+                    psum_out=str(tmp / "psum"))
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(MESH_RANKS, ["chip_smoke.py", "--train-mesh-worker",
+                                         str(tmp / "spec.json"), *dev_arg], tmp / "store", 1200)
+        log(f"[train_mesh] {MESH_RANKS} ranks: {time.perf_counter() - t0:.1f} s from spawn to "
+            "exit")
+        runs = [{r["job"]: r for r in _rank_results(out, "train_mesh")} for out in outs]
+
+        # (1) data parallelism against phase train
+        dp = [r["dp"] for r in runs]
+        for r in dp:
+            _mesh_log("data-parallel", r)
+            _count_into(total, r["launches"])
+            steps = [rec for rec in r["records"] if "ms" in rec]
+            require([rec["step"] for rec in steps] == list(range(1, MESH_STEPS + 1)),
+                    f"data-parallel steps {[rec['step'] for rec in steps]}")
+            require(all(rec["launches"] == per_step for rec in steps),
+                    f"rank {r['rank']}: flash_attn launched {[rec['launches'] for rec in steps]}"
+                    f" times a step, expected {per_step}")
+            require(r["launches"]["flash_attn"] == r["wgmma"] == per_step * MESH_STEPS,
+                    f"rank {r['rank']}: flash_attn launches {r['launches']['flash_attn']} "
+                    f"(tensor cores {r['wgmma']}), expected {per_step * MESH_STEPS}")
+            log(f"[train_mesh] data-parallel rank {r['rank']}: one more step under "
+                f"torch.profiler: device busy {r['busy']} (this rank's kernels)")
+        digests = [[rec["digest"] for rec in r["records"] if "ms" in rec] for r in dp]
+        require(all(d == digests[0] for d in digests), "the replicas' states differ")
+        losses = {rec["step"]: rec["loss"] for rec in dp[0]["records"] if "ms" in rec}
+        require(all({rec["step"]: rec["loss"] for rec in r["records"] if "ms" in rec} == losses
+                    for r in dp), "the ranks' losses differ")
+        diffs = {s: rel(x, want[s]) for s, x in losses.items()}
+        require(diffs[1] <= MESH_STEP1_TOL and max(diffs.values()) <= MESH_LOSS_TOL,
+                f"data-parallel losses {losses} against phase train's {want}: {diffs}")
+        log(f"[train_mesh] data parallelism, {MESH_RANKS} ranks ({dp[0]['backend']} on "
+            f"{dp[0]['device']}), {n_layers} layers, batch {batch} x {seq} in {micro} "
+            f"microbatches: losses {losses}; relative to phase train's "
+            + ", ".join(f"step {s} {d:.3g}" for s, d in diffs.items())
+            + f" (limits {MESH_STEP1_TOL} at step 1, {MESH_LOSS_TOL}); the replicas' "
+            f"parameters, moments and step agree after every step")
+
+        # (2) elastic restore: phase train's checkpoint on 2 ranks
+        rs = [r["restore"] for r in runs]
+        for r in rs:
+            _mesh_log("restore 1 -> 2", r)
+            _count_into(total, r["launches"])
+            first = r["records"][0]
+            require(first["step"] == TRAIN_CKPT_AT and first["restored"] == train["digest"],
+                    f"rank {r['rank']} restored step {first['step']} with digest "
+                    f"{first['restored'][:16]}, phase train saved {str(train['digest'])[:16]}")
+        (rec5,) = [rec for rec in rs[0]["records"] if "ms" in rec]
+        require(all([rec for rec in r["records"] if "ms" in rec][0]["digest"] == rec5["digest"]
+                    for r in rs), "the restored replicas differ")
+        d5 = rel(rec5["loss"], want[TRAIN_CKPT_AT + 1])
+        require(d5 <= MESH_LOSS_TOL, f"step {TRAIN_CKPT_AT + 1} after the 1 -> 2 restore: "
+                f"{rec5['loss']} against {want[TRAIN_CKPT_AT + 1]}")
+        log(f"[train_mesh] phase train's step-{TRAIN_CKPT_AT} checkpoint restored on "
+            f"{MESH_RANKS} ranks bit for bit; step {TRAIN_CKPT_AT + 1} loss {rec5['loss']:.6f}, "
+            f"relative to phase train's {d5:.3g}")
+
+        # (3) the compressed cross-pod step
+        cs = [r["compressed"] for r in runs]
+        for r in cs:
+            _mesh_log("compressed", r)
+            _count_into(total, r["launches"])
+            require(all(rec["agree"] for rec in r["records"]), "compressed replicas differ")
+            require(all(rec["err_norm"] > 0 for rec in r["records"]),
+                    "the error feedback stayed 0")
+        c1 = cs[0]["records"][0]["loss"]
+        require(rel(c1, losses[1]) <= COMPRESSED_STEP1_TOL,
+                f"compressed step 1 loss {c1} against data-parallel {losses[1]}")
+        log(f"[train_mesh] compressed cross-pod step over ('pod',) x {MESH_RANKS}: losses "
+            f"{[rec['loss'] for rec in cs[0]['records']]}; step 1 relative to the data-parallel "
+            f"step 1 {rel(c1, losses[1]):.3g} (limit {COMPRESSED_STEP1_TOL}); int32 exchange "
+            f"{cs[0]['records'][0]['bytes'] / 1e9:.3f} GB a step a rank")
+
+        # (4) compressed_psum bit for bit against the host's formula
+        want_psum = psum_on_host([_psum_inputs(r) for r in range(MESH_RANKS)])
+        for r in range(MESH_RANKS):
+            with np.load(tmp / "psum" / f"rank{r}.npz") as z:
+                out, err = z["out"], z["err"]
+            require(out.tobytes() == want_psum[r][0].tobytes()
+                    and err.tobytes() == want_psum[r][1].tobytes(),
+                    f"compressed_psum rank {r} differs from the host's formula")
+        log(f"[train_mesh] compressed_psum of {PSUM_ELEMS} f32 elements a rank: result and "
+            f"residual equal the host's formula bit for bit on both ranks")
+
+        # (2) elastic restore: the 2 ranks' step-2 checkpoint on this one process
+        one_dir = tmp / "one"
+        shutil.copytree(tmp / "dp" / f"step_{MESH_CKPT_AT:09d}",
+                        one_dir / f"step_{MESH_CKPT_AT:09d}", copy_function=os.link)
+        data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch,
+                            seed=0)
+        records: list = []
+        _zero_counts()
+        _mesh_trainer(api, data, OptConfig(lr=1e-3, warmup_steps=2), one_dir, MESH_STEPS,
+                      micro, None, dev, records).run()
+        lc = _read_counts()
+        _count_into(total, lc)
+        require(lc["flash_attn"] == flash.attention.wgmma_launches == per_step * 2,
+                f"flash_attn launched {lc['flash_attn']} times in the 2 -> 1 restore")
+        saved = {rec["step"]: rec["digest"] for rec in dp[0]["records"] if "ms" in rec}
+        require(records[0]["restored"] == saved[MESH_CKPT_AT],
+                f"the 2 -> 1 restore differs from the state the ranks saved at step "
+                f"{MESH_CKPT_AT}")
+        one = {rec["step"]: rec["loss"] for rec in records if "ms" in rec}
+        d1 = {s: rel(x, want[s]) for s, x in one.items()}
+        require(sorted(one) == [MESH_CKPT_AT + 1, MESH_STEPS]
+                and max(d1.values()) <= MESH_LOSS_TOL,
+                f"steps after the 2 -> 1 restore: {one} against phase train's {want}")
+        log(f"[train_mesh] the ranks' step-{MESH_CKPT_AT} checkpoint restored on one process "
+            f"bit for bit; losses {one}, relative to phase train's "
+            + ", ".join(f"step {s} {d:.3g}" for s, d in d1.items())
+            + ", to the ranks' " + ", ".join(f"step {s} {rel(x, losses[s]):.3g}"
+                                             for s, x in one.items()))
+        _free(dev)
+
+        # (5) the launcher as 2 ranks
+        argv = ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke", "--steps",
+                "3", *(["--device", str(dev)] if dev.type != "cuda" else [])]
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(MESH_RANKS, argv, tmp / "launch", 600)
+        lines = [[ln for ln in o.splitlines() if ln.startswith(("arch=", "step "))]
+                 for o in outs]
+        require(all(f"devices={MESH_RANKS}" in ls[0] for ls in lines)
+                and all(ls == lines[0] for ls in lines),
+                f"the launcher's ranks printed {lines}")
+        log(f"[train_mesh] python {' '.join(argv)} as {MESH_RANKS} ranks: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s, both print " + " | ".join(lines[0]))
+    if train["ckpt"] is not None:
+        shutil.rmtree(train["ckpt"], ignore_errors=True)
+    log(f"[train_mesh] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
 
 
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
@@ -3070,11 +3453,16 @@ def main(argv: list[str] | None = None) -> int:
                          "prints no result line")
     ap.add_argument("--shard-device", default=None,
                     help="a shard rank's device (default: the backend rule's card)")
+    ap.add_argument("--train-mesh-worker", metavar="SPEC",
+                    help="a rank of the train_mesh phase (REPRO_SHARD_* set by the phase, "
+                         "its jobs in the JSON file SPEC); prints no result line")
     args = ap.parse_args(argv)
     if args.crash_worker:
         return crash_worker(args.crash_worker, args.crash_device)
     if args.shard_worker:
         return shard_worker(args.shard_worker, args.shard_device)
+    if args.train_mesh_worker:
+        return train_mesh_worker(args.train_mesh_worker, args.shard_device)
     try:
         import torch
     except ImportError:
@@ -3106,7 +3494,11 @@ def main(argv: list[str] | None = None) -> int:
     shard_launches = phase_shard(dev)
     lm_launches = phase_lm(dev)
     families_launches = phase_lm_families(dev)
-    train_launches = phase_train(dev)
+    import tempfile
+
+    keep = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_ckpt_", dir=ROOT))
+    train_launches, train = phase_train(dev, keep=keep)
+    mesh_launches = phase_train_mesh(dev, train)
     phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
@@ -3127,7 +3519,8 @@ def main(argv: list[str] | None = None) -> int:
             launches=(launches[name] + rules_launches[name] + parallel_launches[name]
                       + stream_launches[name] + matchers_launches[name] + dedup_launches[name]
                       + serving_launches[name] + shard_launches[name] + lm_launches[name]
-                      + families_launches[name] + train_launches[name]),
+                      + families_launches[name] + train_launches[name]
+                      + mesh_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
@@ -3136,7 +3529,8 @@ def main(argv: list[str] | None = None) -> int:
                               "serving": serving_launches[name],
                               "shard": shard_launches[name], "lm": lm_launches[name],
                               "lm_families": families_launches[name],
-                              "train": train_launches[name]},
+                              "train": train_launches[name],
+                              "train_mesh": mesh_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

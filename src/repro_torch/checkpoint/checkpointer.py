@@ -210,14 +210,19 @@ class Checkpointer:
         a ``shape``) to validate against.  ``shardings`` (optional) maps
         name -> a tree of DTensor placements (or one placement for the
         whole tree) for elastic re-placement over ``mesh`` (an
-        :class:`~repro_torch.launch.mesh.EMMesh`; ``None``: the one-rank
-        mesh on ``device``): ``Replicate()`` gives each rank the whole
-        array, ``Shard(d)`` its slice of dimension ``d``.
+        :class:`~repro_torch.launch.mesh.EMMesh`, or a training
+        ``DeviceMesh`` through its flat rank view
+        :meth:`~repro_torch.launch.mesh.EMMesh.ranks_of`; ``None``: the
+        one-rank mesh on ``device``): ``Replicate()`` gives each rank the
+        whole array, ``Shard(d)`` its slice of dimension ``d``.  The saved
+        arrays carry no layout, so any rank count restores any checkpoint.
         """
         from repro_torch.launch.mesh import EMMesh
 
         if mesh is None:
             mesh = EMMesh.local(device)
+        elif not isinstance(mesh, EMMesh):
+            mesh = EMMesh.ranks_of(mesh)
         elif device is not None:
             d = resolve_device(device)
             if d.type != mesh.device.type or d.index not in (None, mesh.device.index):

@@ -67,8 +67,8 @@ equal slices.  The grounding cache and the promoter stay replicated:
 every rank grounds whole bins and takes its slice, so the cache's
 counters equal the one-rank run's.  A one-rank mesh (``mesh=None``) has
 no collective.  ``build_round_fn``/``build_bin_round_fn``, which the
-reference keeps for its multi-pod dry-run, wait for the TPU tooling
-(``ROADMAP.md`` Queue 1 item 15).
+reference keeps for its multi-pod dry-run, raise until the dry run
+(``ROADMAP.md`` Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -108,8 +108,13 @@ from repro_torch.kernels.common import (
     resolve_device,
 )
 from repro_torch.launch.mesh import EMMesh, em_service_mesh
+from repro_torch.models.param import unported_fn
 from repro_torch.obs import profiler_session, record_transfer
 from repro_torch.obs import span as obs_span
+
+
+build_round_fn = unported_fn("build_round_fn", item=17)
+build_bin_round_fn = unported_fn("build_bin_round_fn", item=17)
 
 
 def make_em_mesh(n_shards: int | None = None, axis: str = "data", device=None) -> EMMesh:

@@ -12,9 +12,9 @@ the Zipf draws come from :func:`zipf`, numpy 2.0's sampler written over
 the generator's uniform doubles, where ``Generator.zipf`` itself changed
 its algorithm in a later release and draws other corpora there.
 
-:class:`Loader` prefetches batches on the host.  Placing them on a
-device mesh (``shard_batch``) waits for the multi-device slice
-(``ROADMAP.md`` Queue 1 item 15).
+:class:`Loader` prefetches batches on the host; with a ``mesh`` it hands
+each rank its rows of every global batch (:func:`shard_batch`), so a
+restart on another rank count replays the same global batches.
 """
 
 from __future__ import annotations
@@ -133,24 +133,47 @@ def make_documents(cfg: CorpusConfig, n_docs: int) -> tuple[list[np.ndarray], np
     return docs, dup_of
 
 
-def shard_batch(batch: dict[str, np.ndarray], mesh, data_axes=("data",)):
-    """Placing a host batch onto a device mesh needs the multi-device slice."""
-    raise NotImplementedError("shard_batch is not ported yet (ROADMAP.md Queue 1 item 15)")
+def batch_dim(x) -> int:
+    """The global-batch dim of a batch leaf (M-RoPE positions are (3, B, S))."""
+    return 1 if (len(x.shape) >= 2 and x.shape[0] == 3) else 0
+
+
+def shard_batch(batch: dict, mesh, data_axes=("data",), microbatched: bool = False) -> dict:
+    """This rank's rows of a host batch, on its device: each leaf's batch
+    dim (:func:`batch_dim`, one further right for a pre-split batch's
+    leading microbatch axis) sharded over the mesh's ``data_axes``, the
+    major axis first, as the reference's ``NamedSharding(mesh,
+    P(data_axes))`` lays the batch out.  A pre-split batch is sharded
+    microbatch by microbatch: rank ``r`` holds rows of every microbatch."""
+    from repro_torch.launch.mesh import NamedSharding
+
+    axes = tuple(a for a in data_axes if a in mesh.mesh_dim_names) or None
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    ranks = int(np.prod([sizes[a] for a in axes or ()]))
+    out = {}
+    for k, v in batch.items():
+        d = batch_dim(v[0] if microbatched else v) + int(microbatched)
+        if v.shape[d] % ranks:
+            raise ValueError(f"{k}: {v.shape[d]} rows do not split over {ranks} ranks")
+        spec = [None] * v.ndim
+        spec[d] = axes
+        out[k] = NamedSharding(mesh, tuple(spec)).local(np.asarray(v))
+    return out
 
 
 class Loader:
-    """Prefetching host loader: ``prefetch`` batches are drawn ahead of the
-    one handed out, so batch synthesis can overlap a step.  Yields host
-    (numpy) batches from ``start_step`` on; a ``mesh`` needs
-    :func:`shard_batch`."""
+    """Prefetching loader: ``prefetch`` batches are drawn ahead of the one
+    handed out, so batch synthesis can overlap a step.  Yields host (numpy)
+    global batches from ``start_step`` on, or with a ``mesh`` (a
+    ``DeviceMesh``) this rank's rows on its device (:func:`shard_batch`)."""
 
     def __init__(self, cfg: CorpusConfig, mesh=None, prefetch: int = 2,
                  start_step: int = 0, data_axes=("data",)):
-        if mesh is not None:
-            shard_batch({}, mesh, data_axes)
         self.stream = TokenStream(cfg)
+        self.mesh = mesh
         self.prefetch = prefetch
         self.start_step = start_step
+        self.data_axes = data_axes
 
     def __iter__(self):
         import collections
@@ -159,6 +182,9 @@ class Loader:
         step = self.start_step
         while True:
             while len(q) <= self.prefetch:
-                q.append(self.stream.batch(step))
+                b = self.stream.batch(step)
+                if self.mesh is not None:
+                    b = shard_batch(b, self.mesh, self.data_axes)
+                q.append(b)
                 step += 1
             yield q.popleft()

@@ -24,10 +24,28 @@ always go through a gloo group made beside the device group.  Every
 group gets a timeout (``REPRO_SHARD_TIMEOUT_S``, default 300 s), so a
 rank that dies does not leave the others blocked for gloo's 30 minutes.
 
-This is the EM half of the reference's ``repro.launch.mesh``; its GSPMD
-half, ``make_production_mesh``, ``pod_spec``, ``data_sharding`` and
-``param_sharding``, lays training and the dry-run over a device mesh, and
-each raises until the multi-device slice (``ROADMAP.md`` Queue 1 item 15).
+**Training meshes** (the reference's GSPMD half) are
+``torch.distributed.device_mesh.DeviceMesh`` objects with named dims:
+:func:`make_production_mesh` builds ``(data=16, model=16)`` or
+``(pod=2, data=16, model=16)``; ``pod`` is pure data parallelism
+(parameters replicated across pods, only the batch sharded over it).  A
+sharding (:class:`NamedSharding`) is a mesh plus one DTensor placement
+per mesh dim, ``Shard(d)`` or ``Replicate()``, converted from a logical
+spec tuple (``PSpec.spec``): a tensor dim whose entry names several axes,
+``("pod", "data")``, is ``Shard(d)`` on each of them, the major axis
+first, so rank ``(p, d)`` holds the block that JAX gives device
+``(p, d)``.  Model code declares specs over ``("data", "model")``;
+:func:`pod_spec` rewrites batch-bearing specs so that on a multi-pod mesh
+the batch also shards over ``pod``.
+
+The two kinds of mesh stay apart because they serve different engines.
+The EM engine needs one flat row split, host-driven collectives counted
+by kind, and a gloo host group beside the device group; a training step
+needs named dims, one process group a dim (``get_group("pod")``) and
+DTensor's placement algebra, which ``DeviceMesh`` gives and ``EMMesh``
+would only copy.  :meth:`EMMesh.ranks_of` gives a training mesh's flat
+rank view where an EM-side helper (the checkpointer's placement) needs
+one.
 """
 
 from __future__ import annotations
@@ -43,14 +61,134 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.common import mesh_spans_processes, resolve_device
-from repro_torch.models.param import unported_fn
 
 DEFAULT_TIMEOUT_S = 300.0
 
-make_production_mesh = unported_fn("make_production_mesh", item=15)
-pod_spec = unported_fn("pod_spec", item=15)
-data_sharding = unported_fn("data_sharding", item=15)
-param_sharding = unported_fn("param_sharding", item=15)
+
+# ---------------------------------------------------------------------------
+# Training meshes: named DeviceMesh dims, logical specs -> DTensor placements
+# ---------------------------------------------------------------------------
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production ``DeviceMesh``: ``(16, 16)`` over ``("data", "model")``,
+    or ``(2, 16, 16)`` over ``("pod", "data", "model")``, on ranks 0..n-1
+    of the joined process group (which needs at least 256 or 512 ranks; a
+    ``fake`` group of that size lays the mesh out without devices)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    ranks = torch.arange(int(np.prod(shape))).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=axes)
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """A mesh's axis sizes by name, in mesh order."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on a ``DeviceMesh``: its type, and for CUDA the
+    current card (``init_em_distributed`` sets it from the backend rule)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _entry_axes(e) -> tuple:
+    if e is None:
+        return ()
+    return tuple(e) if isinstance(e, (tuple, list)) else (e,)
+
+
+def pod_spec(spec: tuple, mesh) -> tuple:
+    """Rewrite 'data' -> ('pod', 'data') when the mesh has a pod axis."""
+    if "pod" not in mesh.mesh_dim_names:
+        return tuple(spec)
+
+    def fix(entry):
+        if entry == "data":
+            return ("pod", "data")
+        if isinstance(entry, (tuple, list)):
+            out = []
+            for e in entry:
+                out.extend(["pod", "data"] if e == "data" else [e])
+            return tuple(out)
+        return entry
+
+    return tuple(fix(e) for e in spec)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A logical spec laid over a ``DeviceMesh``: ``spec`` names mesh axes
+    per tensor dim (``None``, an axis, or a tuple of axes, major first);
+    ``placements`` holds one DTensor placement per mesh dim."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(self.mesh.mesh_dim_names)
+        owner: dict[str, int] = {}
+        for d, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            missing = [a for a in axes if a not in names]
+            if missing:
+                raise ValueError(f"spec {self.spec} names {missing}, not in mesh {names}")
+            order = [names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(f"spec entry {entry} is not in mesh order {names}: a "
+                                 "DTensor shards one dim over mesh dims major first")
+            for a in axes:
+                if a in owner:
+                    raise ValueError(f"spec {self.spec} shards two dims over {a!r}")
+                owner[a] = d
+        return tuple(Shard(owner[a]) if a in owner else Replicate() for a in names)
+
+    def block(self, shape, coordinate=None) -> tuple[slice, ...]:
+        """The slices of a ``shape`` tensor that the rank at ``coordinate``
+        (default: this rank's) holds: each ``Shard(d)`` in mesh order cuts
+        dim ``d``'s current piece into ``size`` chunks of ``ceil`` length
+        (DTensor's layout; on dims the shard count divides, JAX's)."""
+        if coordinate is None:
+            coordinate = self.mesh.get_coordinate()
+        lo, n = [0] * len(shape), list(shape)
+        for c, size, p in zip(coordinate, self.mesh.shape, self.placements):
+            if p.is_shard():
+                d = p.dim
+                chunk = -(-n[d] // size)
+                start = min(c * chunk, n[d])
+                lo[d] += start
+                n[d] = min(chunk, n[d] - start)
+        return tuple(slice(a, a + b) for a, b in zip(lo, n))
+
+    def local(self, x) -> torch.Tensor:
+        """This rank's block of the whole host array or tensor ``x``, on its
+        device."""
+        part = x[self.block(x.shape)]
+        if isinstance(part, np.ndarray):
+            part = np.ascontiguousarray(part)
+        return torch.as_tensor(part, device=mesh_device(self.mesh))
+
+
+def data_sharding(mesh, spec: tuple) -> NamedSharding:
+    """The sharding of an *input/state* spec (the batch shards over pod)."""
+    return NamedSharding(mesh, pod_spec(spec, mesh))
+
+
+def param_sharding(mesh, spec: tuple) -> NamedSharding:
+    """The sharding of a *parameter* spec (pod-replicated by design)."""
+    return NamedSharding(mesh, tuple(spec))
+
+
+# ---------------------------------------------------------------------------
+# EM serving meshes (multi-process sharded resolution)
+# ---------------------------------------------------------------------------
 
 # the process group this process joined (init_em_distributed), and the
 # meshes made on it: one gloo host group a (device, axis), because
@@ -176,6 +314,17 @@ class EMMesh:
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return cls(size=1, rank=0, device=dev, backend="local", axis_names=(axis,))
+
+    @classmethod
+    def ranks_of(cls, mesh) -> "EMMesh":
+        """The flat rank view of a training ``DeviceMesh`` spanning the
+        joined group: ranks in mesh order (the row-major flattening of its
+        coordinate), this rank's device; no host group."""
+        coord = mesh.get_coordinate()
+        rank = int(np.ravel_multi_index(tuple(coord), tuple(mesh.shape)))
+        return cls(size=int(np.prod(mesh.shape)), rank=rank, device=mesh_device(mesh),
+                   backend=dist.get_backend() if mesh.size() > 1 else "local",
+                   axis_names=tuple(mesh.mesh_dim_names))
 
     def row_slice(self, n: int) -> tuple[int, int]:
         """This rank's rows of an ``n``-row axis padded to a multiple of

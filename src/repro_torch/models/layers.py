@@ -11,9 +11,11 @@ Conventions, the reference's (``repro.models.layers``):
     every full-sequence attention runs the ``flash_attn`` kernel;
   * decode uses a KV cache ``[B, n_kv, S_max, hd]`` written at ``pos[0]``.
 
-One device has no mesh, so the reference's sharding pins
-(``shard_batch``, ``shard_spec``) have no counterpart here; they come
-with the multi-device slice (``ROADMAP.md`` Queue 1 item 15).
+The reference's activation pins (``ambient_mesh``, ``shard_spec``,
+``shard_batch``, with its ``DP_OVER_MODEL`` and ``SEQ_SHARD_BOUNDARY``
+switches) lay activations over a tensor-parallel mesh; data-parallel
+training needs none, and each raises until tensor parallelism
+(``ROADMAP.md`` Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import ops as flash
-from repro_torch.models.param import PSpec, in_bf16
+from repro_torch.models.param import PSpec, in_bf16, unported_fn
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e9
@@ -37,6 +39,10 @@ NEG_INF = -1e9
 # tensors always take the flash kernel.
 ATTN_CHUNK_THRESHOLD = int(os.environ.get("REPRO_ATTN_CHUNK_THRESHOLD", 4096))
 ATTN_Q_BLOCK = int(os.environ.get("REPRO_ATTN_Q_BLOCK", 1024))
+
+ambient_mesh = unported_fn("ambient_mesh", item=17)
+shard_spec = unported_fn("shard_spec", item=17)
+shard_batch = unported_fn("shard_batch", item=17)
 
 
 def mp(x):

@@ -44,6 +44,9 @@ def moe_specs(cfg: ModelConfig) -> dict:
     return {"router": PSpec((d, e), (None, None), scale=0.02), **in_bf16(specs)}
 
 
+GROUP_SIZE = 512  # tokens a routing group (the reference's default)
+
+
 def _capacity(tokens_per_group: int, cfg: ModelConfig, factor: float = 1.25) -> int:
     k, e = cfg.experts_per_token, cfg.n_experts
     c = int(tokens_per_group * k * factor / e) + 1
@@ -75,7 +78,7 @@ def route(cfg: ModelConfig, router, xt):
     return probs, idx, gate, within
 
 
-def moe_ffn(cfg: ModelConfig, p, x, *, group_size: int = 512):
+def moe_ffn(cfg: ModelConfig, p, x, *, group_size: int = GROUP_SIZE):
     """x (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token

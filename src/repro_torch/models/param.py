@@ -6,6 +6,10 @@ Models declare their parameters as a tree (nested ``dict``) of
 * ``init_params``  — materialized tensors on a device, one explicit
   ``torch.Generator`` per leaf, each leaf cast to its declared dtype as it
   is drawn (:func:`in_bf16` declares the leaves a model computes with);
+* ``abstract_params`` — ``meta``-device stand-ins (shapes and dtypes, no
+  storage), PyTorch's counterpart of ``jax.ShapeDtypeStruct``;
+* ``shardings``    — a :class:`repro_torch.launch.mesh.NamedSharding` tree
+  over a ``DeviceMesh`` (DTensor placements per mesh dim);
 * ``param_count``  — the exact parameter count.
 
 A loaded model is a tree of :class:`Params` modules, read as ``p[name]``
@@ -18,10 +22,9 @@ each use, as the reference trains.  :func:`stacked_tree` and
 stacked tree and back.
 
 ``PSpec.spec`` names the logical mesh axes of each dimension as a plain
-tuple (``("model", None)``); one device has no mesh, so nothing reads
-it yet.  The mesh and dry-run machinery of the reference
-(``abstract_params``, ``filter_spec``, ``shardings``) waits for the
-multi-device slice (``ROADMAP.md`` Queue 1 item 15).
+tuple (``("model", None)``), the reference's ``PartitionSpec`` entries;
+:func:`filter_spec` drops the axes a physical mesh lacks (the ``model``
+axis of a data-parallel mesh).
 """
 
 from __future__ import annotations
@@ -111,9 +114,32 @@ def unported_fn(name: str, item: int):
     return stub
 
 
-abstract_params = unported_fn("abstract_params", item=15)
-filter_spec = unported_fn("filter_spec", item=15)
-shardings = unported_fn("shardings", item=15)
+def abstract_params(tree):
+    """``meta``-device tensors of each leaf's shape and dtype (no storage)."""
+    return spec_tree_map(lambda ps: torch.empty(ps.shape, dtype=ps.dtype, device="meta"), tree)
+
+
+def filter_spec(spec: tuple, mesh) -> tuple:
+    """Drop mesh axes the physical mesh does not have (e.g. one rank)."""
+    names = set(mesh.mesh_dim_names)
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(e for e in entry if e in names)
+            return kept if kept else None
+        return entry if entry in names else None
+
+    return tuple(keep(e) for e in spec)
+
+
+def shardings(tree, mesh):
+    """The :class:`~repro_torch.launch.mesh.NamedSharding` tree of a PSpec
+    tree over a ``DeviceMesh``."""
+    from repro_torch.launch.mesh import NamedSharding
+
+    return spec_tree_map(lambda ps: NamedSharding(mesh, filter_spec(ps.spec, mesh)), tree)
 
 
 def _leaf_seed(seed: int, index: int) -> int:

@@ -13,9 +13,9 @@
   * ``input_specs(shape)``             — ``(shape, dtype)`` record per input
 
 Every family is ported: dense (MLA included), MoE, VLM, SSM, hybrid and
-encoder-decoder.  ``input_pspecs`` (the inputs' mesh axes) waits for the
-multi-device slice (``ROADMAP.md`` Queue 1 item 15).  The modality
-frontends are stubs, as in the reference:
+encoder-decoder; ``input_pspecs(shape)`` gives each input's logical
+mesh axes as a spec tuple.  The modality frontends are stubs, as in the
+reference:
 the VLM's training inputs carry precomputed patch embeddings, the
 encoder-decoder's precomputed audio frame embeddings.
 """
@@ -30,7 +30,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models.param import unported_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +65,19 @@ class ModelAPI:
             specs["frames"] = InputSpec((B, cfg.encoder_frames, cfg.d_model), torch.bfloat16)
         return specs
 
-    input_pspecs = unported_fn("input_pspecs", item=15)
+    def input_pspecs(self, shape: ShapeConfig) -> dict[str, tuple]:
+        """Each input's logical spec tuple: the batch over ``data`` (dim 1 of
+        the VLM's (3, B, S) ``positions``), audio frames' width over ``model``."""
+        if shape.kind == "decode":
+            return {"tokens": ("data", None), "pos": ("data",)}
+        specs = {"tokens": ("data", None), "labels": ("data", None)}
+        if self.cfg.family == "vlm":
+            specs["vision_embeds"] = ("data", None, None)
+            specs["vision_pos"] = ("data", None)
+            specs["positions"] = (None, "data", None)
+        if self.cfg.family == "encdec":
+            specs["frames"] = ("data", None, "model")
+        return specs
 
     def demo_batch(self, shape: ShapeConfig, seed: int = 0) -> dict[str, np.ndarray]:
         """Concrete random inputs matching input_specs (smoke tests), drawn

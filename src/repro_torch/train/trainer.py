@@ -16,8 +16,26 @@ package restores in the other.  In memory the parameters are the model's
 per-layer f32 masters and the moments are keyed by the model's parameter
 names; :func:`repro_torch.models.param.stacked_tree` and ``layer_slices``
 convert.  The device is CUDA unless ``device`` says otherwise (``None``
-raises without a GPU).  Training on a device mesh (``mesh=``) waits for
-the multi-device slice (``ROADMAP.md`` Queue 1 item 15).
+raises without a GPU).
+
+**On a mesh** (``mesh=``, a ``DeviceMesh`` of ``data`` and/or ``pod``
+ranks spanning the joined process group; one process a rank) training is
+data-parallel: every rank holds the whole model and its moments, takes
+its rows of each global batch (:func:`repro_torch.data.corpus.
+shard_batch`), and applies the mean gradient over the ranks
+(:func:`repro_torch.train.train_step.make_train_step`).  The reference
+lays parameters out by ``shardings(specs, mesh)``, which on such a mesh
+drops the absent ``model`` axis; it also keeps the ``data`` entries of
+the MoE expert weights, which its compiler gathers back at each use.
+Here every leaf is whole on every rank (``Replicate()``): the same step
+in memory that fits a rank; sharding the state is item 17's FSDP, and a
+``model`` axis of more than one rank raises (tensor parallelism,
+``ROADMAP.md`` Queue 1 item 17).  After every step the ranks compare
+their parameters' :func:`~repro_torch.train.train_step.replica_digest`
+and raise if they differ.  Rank 0 writes the checkpoints, in the same
+layout as one device; ``restore_or_init`` re-places a checkpoint of any
+rank count under the current mesh (``Checkpointer.restore(mesh=,
+shardings=)``), which makes a restart elastic.
 """
 
 from __future__ import annotations
@@ -27,15 +45,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.data.corpus import CorpusConfig, TokenStream
+from repro_torch.data.corpus import CorpusConfig, TokenStream, shard_batch
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.param import unported
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.param import in_f32, init_params, layer_slices, stacked_tree
 from repro_torch.models.registry import ModelAPI
 from repro_torch.train.optimizer import OptConfig, init_opt_state
-from repro_torch.train.train_step import make_train_step, split_microbatches
+from repro_torch.train.train_step import (
+    data_parallel_group,
+    make_train_step,
+    replicas_agree,
+    split_microbatches,
+)
 
 
 @dataclasses.dataclass
@@ -79,10 +103,18 @@ def state_from_tree(api: ModelAPI, tree: dict, opt_tree: dict | None = None) -> 
 class Trainer:
     def __init__(self, api: ModelAPI, data_cfg: CorpusConfig, opt_cfg: OptConfig,
                  cfg: TrainerConfig, mesh=None, device=None):
+        self.mesh = mesh
+        self.group = None
         if mesh is not None:
-            raise unported("training on a device mesh", item=15)
+            self.group = data_parallel_group(mesh)
+            here = mesh_device(mesh)
+            if device is not None and resolve_device(device).type != here.type:
+                raise ValueError(f"device {device}, but this rank of the mesh is on {here}")
+            device = here
+            self.dp_axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
         self.api = api
         self.device = resolve_device(device)
+        self.writer = mesh is None or dist.get_rank() == 0
         self.data = TokenStream(data_cfg)
         self.opt_cfg = opt_cfg
         self.cfg = cfg
@@ -92,7 +124,7 @@ class Trainer:
             if cfg.ckpt_dir
             else None
         )
-        self.step_fn = make_train_step(api, opt_cfg, microbatches=cfg.microbatches)
+        self.step_fn = make_train_step(api, opt_cfg, microbatches=cfg.microbatches, mesh=mesh)
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
@@ -108,7 +140,13 @@ class Trainer:
                 specs = self.api.param_specs()
                 templates = {"params": specs, "opt": {
                     "m": specs, "v": specs, "step": np.zeros((), np.int32)}}
-                got = self.ckpt.restore(latest, templates, device=self.device)
+                if self.mesh is None:
+                    got = self.ckpt.restore(latest, templates, device=self.device)
+                else:
+                    from torch.distributed.tensor import Replicate
+
+                    got = self.ckpt.restore(latest, templates, mesh=self.mesh, shardings={
+                        "params": Replicate(), "opt": Replicate()})
                 return state_from_tree(self.api, got["params"], got["opt"]), latest
         return self.init_state()[0], 0
 
@@ -116,28 +154,42 @@ class Trainer:
     def run(self) -> dict:
         state, start = self.restore_or_init()
         params, opt = state["params"], state["opt"]
-        losses = []
+        losses, digests = [], []
+        micro = self.cfg.microbatches
         t0 = time.perf_counter()
         step = start
         for step in range(start, self.cfg.steps):
-            batch = split_microbatches(self.data.batch(step), self.cfg.microbatches)
-            batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            batch = split_microbatches(self.data.batch(step), micro)
+            if self.mesh is None:
+                batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            else:
+                batch = shard_batch(batch, self.mesh, self.dp_axes, microbatched=micro > 1)
             params, opt, metrics = self.step_fn(params, opt, batch)
+            if self.mesh is not None:
+                agree, digest = replicas_agree(dict(params.named_parameters()), self.group)
+                if not agree:
+                    raise RuntimeError(f"the replicas' parameters differ after step {step + 1}")
+                digests.append((step + 1, digest))
             if (step + 1) % self.cfg.log_every == 0 or step == start:
                 losses.append((step + 1, float(metrics["loss"])))
             if self.ckpt and ((step + 1) % self.cfg.ckpt_every == 0 or self.preempted):
-                self.ckpt.save(step + 1, checkpoint_state(params, opt))
+                if self.writer:
+                    self.ckpt.save(step + 1, checkpoint_state(params, opt))
                 if self.preempted:
                     self.ckpt.wait()
                     break
-        if self.ckpt:
+        if self.ckpt and self.writer:
             self.ckpt.save(self.cfg.steps, checkpoint_state(params, opt))
+        if self.ckpt:
             self.ckpt.wait()
+        if self.mesh is not None:
+            dist.barrier(self.group)  # every rank returns once the checkpoint is written
         wall = time.perf_counter() - t0
         return {
             "params": params,
             "opt": opt,
             "losses": losses,
+            "digests": digests,
             "steps_done": step + 1,
             "wall_time_s": wall,
         }

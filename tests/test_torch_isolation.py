@@ -31,7 +31,7 @@ assert {{
     "repro_torch.models.hybrid", "repro_torch.models.encdec", "repro_torch.data.corpus",
     "repro_torch.data.dedup", "repro_torch.models.scan_utils", "repro_torch.train.optimizer",
     "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.train.compress",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.launch.dryrun",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -90,6 +90,7 @@ NEW_MODULES = [
     "src/repro_torch/train/trainer.py",
     "src/repro_torch/train/compress.py",
     "src/repro_torch/launch/train.py",
+    "src/repro_torch/launch/dryrun.py",
 ]
 
 
@@ -304,58 +305,71 @@ def test_training_needs_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
     assert t.device.type == "cpu" and t.run()["steps_done"] == 1
 
 
-def _item15_calls():
-    from repro_torch.configs.base import ShapeConfig, smoke_config
+def _fake_world(n: int):
+    """Rank 0 of a ``fake`` process group of ``n`` ranks (no collective runs):
+    a mesh with a ``model`` axis lays out without devices."""
+    import contextlib
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    @contextlib.contextmanager
+    def world():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+    return world()
+
+
+def _item17_calls():
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.core import parallel
     from repro_torch.data import corpus
-    from repro_torch.launch import mesh, sharding
-    from repro_torch.models import param
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
     from repro_torch.models.registry import get_model
-    from repro_torch.train import compress, optimizer, train_step, trainer
+    from repro_torch.train import optimizer, train_step, trainer
 
     api = get_model(smoke_config("qwen1_5_0_5b"))
+
+    def tp_mesh():
+        return DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
+
     calls = {
-        "param.abstract_params": lambda: param.abstract_params(api.param_specs()),
-        "param.filter_spec": lambda: param.filter_spec((None,), None),
-        "param.shardings": lambda: param.shardings(api.param_specs(), None),
-        "registry.input_pspecs": lambda: api.input_pspecs(ShapeConfig("t", 8, 2, "train")),
-        "corpus.shard_batch": lambda: corpus.shard_batch({}, object()),
-        "corpus.Loader(mesh=)": lambda: corpus.Loader(corpus.CorpusConfig(), mesh=object()),
-        "train_step.microbatched_specs": lambda: train_step.microbatched_specs({}, {}, 2),
-        "make_train_step(compress_pods=True)": lambda: train_step.make_train_step(
-            api, optimizer.OptConfig(), compress_pods=True),
-        "Trainer(mesh=)": lambda: trainer.Trainer(
+        "Trainer(mesh with model > 1)": lambda: trainer.Trainer(
             api, corpus.CorpusConfig(), optimizer.OptConfig(), trainer.TrainerConfig(),
-            mesh=object(), device="cpu"),
+            mesh=tp_mesh(), device="cpu"),
+        "make_train_step(mesh with model > 1)": lambda: train_step.make_train_step(
+            api, optimizer.OptConfig(), mesh=tp_mesh()),
     }
-    for name in ("quantize", "compressed_psum", "tree_compressed_psum", "init_error_state"):
-        calls[f"compress.{name}"] = getattr(compress, name)
-    for name in ("data_axis_size", "fsdp_spec", "strip_model", "dp_over_model_spec",
-                 "fsdp_params", "cast_params", "drop_indivisible", "input_shardings",
-                 "state_shardings", "param_shardings"):
-        calls[f"sharding.{name}"] = getattr(sharding, name)
-    for name in ("make_production_mesh", "pod_spec", "data_sharding", "param_sharding"):
-        calls[f"mesh.{name}"] = getattr(mesh, name)
+    for name in ("ambient_mesh", "shard_spec", "shard_batch"):
+        calls[f"layers.{name}"] = getattr(layers, name)
+    for name in ("build_round_fn", "build_bin_round_fn"):
+        calls[f"parallel.{name}"] = getattr(parallel, name)
+    for name in ("lower_cell", "lower_em_cell", "analyze", "roofline_terms"):
+        calls[f"dryrun.{name}"] = getattr(dryrun, name)
     return calls
 
 
-ITEM15 = [
-    "param.abstract_params", "param.filter_spec", "param.shardings", "registry.input_pspecs",
-    "corpus.shard_batch", "corpus.Loader(mesh=)", "train_step.microbatched_specs",
-    "make_train_step(compress_pods=True)", "Trainer(mesh=)", "compress.quantize",
-    "compress.compressed_psum", "compress.tree_compressed_psum", "compress.init_error_state",
-    "sharding.data_axis_size", "sharding.fsdp_spec", "sharding.strip_model",
-    "sharding.dp_over_model_spec", "sharding.fsdp_params", "sharding.cast_params",
-    "sharding.drop_indivisible",
-    "sharding.input_shardings", "sharding.state_shardings", "sharding.param_shardings",
-    "mesh.make_production_mesh", "mesh.pod_spec", "mesh.data_sharding", "mesh.param_sharding",
+ITEM17 = [
+    "Trainer(mesh with model > 1)", "make_train_step(mesh with model > 1)",
+    "layers.ambient_mesh", "layers.shard_spec", "layers.shard_batch",
+    "parallel.build_round_fn", "parallel.build_bin_round_fn",
+    "dryrun.lower_cell", "dryrun.lower_em_cell", "dryrun.analyze", "dryrun.roofline_terms",
 ]
 
 
-@pytest.mark.parametrize("name", ITEM15)
-def test_multi_device_training_pieces_raise(name):
-    """The multi-device half of training waits for ROADMAP.md Queue 1 item 15:
-    each piece raises, naming the item."""
-    calls = _item15_calls()
-    assert sorted(calls) == sorted(ITEM15)
-    with pytest.raises(NotImplementedError, match="item 15"):
+@pytest.mark.parametrize("name", ITEM17)
+def test_tensor_parallel_and_dry_run_pieces_raise(name):
+    """Tensor parallelism over the ``model`` axis, the activation pins, the
+    round functions of the multi-pod dry run, and the dry-run tooling wait for
+    ROADMAP.md Queue 1 item 17: each raises, naming the item."""
+    calls = _item17_calls()
+    assert sorted(calls) == sorted(ITEM17)
+    with _fake_world(2), pytest.raises(NotImplementedError, match="item 17"):
         calls[name]()

@@ -158,12 +158,24 @@ def test_microbatched_train_matches_single():
 
 
 def test_unported_train_options_raise():
+    """The compressed step needs a mesh with a ``pod`` axis; a mesh whose
+    ``model`` axis has more than one rank (tensor parallelism) raises in
+    the Trainer, naming ROADMAP.md Queue 1 item 17."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     api = registry.get_model(base.smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="pod"):
         train_step.make_train_step(api, optimizer.OptConfig(), compress_pods=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(api, CorpusConfig(), optimizer.OptConfig(), TrainerConfig(), mesh=object(),
-                device="cpu")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
+        with pytest.raises(NotImplementedError, match="item 17"):
+            Trainer(api, CorpusConfig(), optimizer.OptConfig(), TrainerConfig(), mesh=mesh,
+                    device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _rel_norm(a, b) -> float:
