@@ -191,9 +191,36 @@
    to 0 before a run and reads them after.  Prints each rank's step walls,
    collective ms and bytes a step, peak memory, and its busy share of one
    more step under ``torch.profiler``.
-15. Profile: the first 100 MMP evaluations once more under
+15. Train TP (``train_tp``): tensor parallelism, this script again as 2
+   ranks (``--train-tp-worker``) sharing the card (gloo; the functional
+   all-gathers DTensor issues are composed from gloo's c10d all-gather,
+   ``launch/mesh.py`` ``compose_gloo_cuda_collectives``),
+   with phase train's model
+   and settings over a ``(data, model)`` mesh of (1, 2): 8 of 16 heads and
+   75,968 of 151,936 vocabulary rows a rank, every parameter a DTensor
+   laid out by the reference's specs.  (a) ``Trainer`` for 4 steps, a
+   checkpoint at step 2 (whole leaves, the reference's layout): the losses
+   within ``MESH_LOSS_TOL`` of phase train's (``MESH_STEP1_TOL`` at step
+   1), the blocks that ranks share equal after every step, ``flash_attn``
+   96 times a rank a step; step 4 runs under ``torch.profiler`` for the
+   busy share.  (b) That checkpoint restored onto a (2, 1) data-parallel
+   mesh of the same ranks and, in this process, onto one card: each state
+   equal to the checkpoint's bit for bit, and step 3 within
+   ``MESH_LOSS_TOL`` of the tensor-parallel one.  Prints each rank's step
+   ms, peak memory and busy share, and for steps 1 and 2 (``TP_COUNTED``,
+   run inside ``OpCounter``, each collective synchronized) the collective
+   ms, calls and bytes by kind; steps 3 and 4 run uncounted.
+16. Dry run (``dryrun``), in a process of its own on this machine's CPU,
+   started before phase ``train`` and read after ``train_tp``:
+   ``launch.dryrun.lower_cell`` for ``DRYRUN_CELLS`` and
+   ``lower_em_cell`` on the (16, 16) and (2, 16, 16)
+   meshes of a ``fake`` process group; each record's parameters, active
+   parameters, tokens a step and model FLOPs equal to the port's own
+   functions', and its roofline terms printed at the H100's datasheet
+   constants (``launch.roofline``).
+17. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-16. The card's name and power limit, the kernel list as one JSON line, and
+18. The card's name and power limit, the kernel list as one JSON line, and
    last the line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Imports
@@ -708,6 +735,7 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (4, 32, 1500, 16, 16, 64, torch.bfloat16, False, None),
         (4, 32, 32, 16, 16, 64, torch.bfloat16, True, None),
         (4, 2048, 2048, 16, 16, 64, torch.bfloat16, True, None),
+        (4, 2048, 2048, 8, 8, 64, torch.bfloat16, True, None),  # train_tp: 8 of 16 heads a rank
         (2, 256, 256, 16, 16, 64, torch.bfloat16, True, None),
         (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
@@ -3057,13 +3085,21 @@ COMPRESSED_STEP1_TOL = 1e-6  # the compressed step's step 1 against the data-par
 PSUM_ELEMS = 1 << 20
 
 
-def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records):
+def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records,
+                  profile_last: bool = False, count_steps=()):
     """A Trainer whose steps are timed on the host clock (synchronized), with
     each step's launches, collective seconds and bytes, peak memory and state
-    digest recorded; the first record is the state as restored."""
+    digest recorded; the first record is the state as restored.
+    ``profile_last``: the last step runs under torch.profiler, its record
+    holding the device's busy share (and its time the profiler's cost).
+    A data-parallel step times its own all-reduces (``step.stats``); a
+    tensor-parallel step's collectives are counted by kind, each
+    synchronized, by ``OpCounter`` on the steps in ``count_steps`` only (the
+    others run as a user's would, so the pair shows what counting costs)."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.launch.hlo_analysis import OpCounter, by_kind
     from repro_torch.train.train_step import state_digest as train_digest
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3071,6 +3107,11 @@ def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records
         steps=steps, ckpt_every=MESH_CKPT_AT, log_every=1, microbatches=micro,
         ckpt_dir=str(ckpt_dir), keep_ckpts=3), mesh=mesh, device=dev)
     step_fn = t.step_fn
+    if t.tp:  # a tensor-parallel state's digest: each rank's blocks
+        from repro_torch.train.train_step import tp_replicas_agree
+
+        def train_digest(model, opt):  # noqa: F811
+            return tp_replicas_agree(model, opt, mesh)[1]
 
     def timed(model, opt, b):
         if not records:
@@ -3079,15 +3120,40 @@ def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         before = flash.attention.launches
+        step_no = int(opt["step"]) + 1
+        counter = OpCounter(timed=True, ops=False) if t.tp and step_no in count_steps else None
+
+        def run():
+            if counter is None:
+                return step_fn(model, opt, b)
+            with counter:
+                return step_fn(model, opt, b)
+
         t0 = time.perf_counter()
-        out = step_fn(model, opt, b)
+        busy = None
+        if profile_last and step_no == steps and dev.type == "cuda":
+            got = []
+            busy = _device_busy(dev, lambda: got.append(run()))
+            out = got[0]
+        else:
+            out = run()
         loss = float(out[2]["loss"])
         _sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
-        stats = getattr(step_fn, "stats", {"collective_s": 0.0, "bytes": 0})
+        if counter is not None:
+            colls = counter.counts.collectives
+            stats = dict(collective_s=sum(c["seconds"] for c in colls),
+                         bytes=sum(c["bytes"] for c in colls),
+                         by_kind=by_kind(colls, "bytes"),
+                         seconds_by_kind=by_kind(colls, "seconds"))
+        else:
+            stats = {} if t.tp else getattr(step_fn, "stats", {"collective_s": 0.0, "bytes": 0})
         records.append(dict(step=int(out[1]["step"]), ms=ms, loss=loss,
                             launches=flash.attention.launches - before,
-                            collective_ms=stats["collective_s"] * 1e3, bytes=stats["bytes"],
+                            **({"collective_ms": stats["collective_s"] * 1e3,
+                                "bytes": stats["bytes"]} if stats else {}),
+                            **{k: stats[k] for k in ("by_kind", "seconds_by_kind")
+                               if k in stats}, **({"busy": busy} if busy else {}),
                             peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
                             digest=train_digest(out[0], out[1])))
         return out
@@ -3403,6 +3469,294 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
     return total
 
 
+# the train_tp phase: phase train's model and settings over a (data, model)
+# mesh of (1, 2), 2 ranks sharing the card
+TP_SHAPE = (1, 2)
+TP_STEPS, TP_CKPT_AT = 4, 2
+TP_COUNTED = (1, 2)  # steps whose collectives OpCounter counts; 3 and 4 run uncounted
+
+
+def _tp_mesh(dev_type: str, shape):
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(dev_type, torch.arange(shape[0] * shape[1]).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+
+
+def train_tp_worker(spec_path: str, device: str | None) -> int:
+    """A rank of phase ``train_tp`` (``REPRO_SHARD_*`` set by the phase): (1)
+    the tensor-parallel Trainer over a (1, 2) mesh from phase train's seed,
+    a checkpoint at step 2, the last step under the profiler; (2) that
+    checkpoint restored onto a (2, 1) data-parallel mesh and one step;
+    prints one ``SHARD_RESULT`` line a job."""
+    import torch.distributed as dist
+
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.launch.mesh import init_em_distributed, mesh_device
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig
+
+    spec = json.loads(Path(spec_path).read_text())
+    init_em_distributed(device=device)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev_type = "cpu" if device == "cpu" else "cuda"
+    api = get_model(_train_cfg(spec["layers"], spec["smoke"]))
+    micro, seq, batch = spec["micro"], spec["seq"], spec["batch"]
+    data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
+    for job, shape, steps in [("tp", TP_SHAPE, TP_STEPS),
+                              ("restore", TP_SHAPE[::-1], TP_CKPT_AT + 1)]:
+        ckpt_dir = Path(spec["dir"])
+        if job == "restore":  # the step-2 checkpoint alone
+            ckpt_dir = ckpt_dir.with_name("restore")
+            if rank == 0:
+                import shutil
+
+                shutil.copytree(Path(spec["dir"]) / f"step_{TP_CKPT_AT:09d}",
+                                ckpt_dir / f"step_{TP_CKPT_AT:09d}", copy_function=os.link)
+            dist.barrier()
+        mesh = _tp_mesh(dev_type, shape)
+        dev = mesh_device(mesh)
+        who = dict(rank=rank, ranks=n, backend=dist.get_backend(), device=str(dev),
+                   mesh=list(shape))
+        records: list = []
+        _zero_counts()
+        out = _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records,
+                            profile_last=job == "tp", count_steps=TP_COUNTED).run()
+        launches = _read_counts()
+        wgmma = _wrappers()["flash_attn"].wgmma_launches
+        _rank_result("train_tp", job=job, records=records, launches=launches, wgmma=wgmma,
+                     busy=records[-1].get("busy"), **who)
+        del out
+        _free(dev)
+    dist.destroy_process_group()
+    return 0
+
+
+def _checkpoint_digest(api, ckpt_dir: Path, step: int) -> str:
+    """The state digest of a checkpoint, restored on the CPU."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.train.train_step import state_digest as train_digest
+    from repro_torch.train.trainer import state_from_tree
+
+    specs = api.param_specs()
+    got = Checkpointer(str(ckpt_dir)).restore(step, {"params": specs, "opt": {
+        "m": specs, "v": specs, "step": np.zeros((), np.int32)}}, device="cpu")
+    state = state_from_tree(api, got["params"], got["opt"])
+    return train_digest(state["params"], state["opt"])
+
+
+def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                   micro: int = TRAIN_MICRO, layers: int | None = None,
+                   smoke: bool = False) -> dict:
+    """Tensor-parallel training on the card (see the module docstring).
+    ``train`` is phase train's result (its losses by step).  Returns the
+    launch counts of the ranks' and this process's Trainer runs."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.corpus import CorpusConfig
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    api = get_model(_train_cfg(layers, smoke))
+    n_layers = api.cfg.n_layers
+    per_step = n_layers * micro * 2
+    want = train["losses"]
+    dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        spec = dict(layers=layers, smoke=smoke, seq=seq, batch=batch, micro=micro,
+                    dir=str(tmp / "tp"))
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(MESH_RANKS, ["chip_smoke.py", "--train-tp-worker",
+                                         str(tmp / "spec.json"), *dev_arg], tmp / "store", 1200)
+        log(f"[train_tp] {MESH_RANKS} ranks: {time.perf_counter() - t0:.1f} s from spawn to "
+            "exit")
+        runs = [{r["job"]: r for r in _rank_results(out, "train_tp")} for out in outs]
+
+        # (1) the tensor-parallel steps against phase train
+        tp = [r["tp"] for r in runs]
+        for r in tp:
+            _count_into(total, r["launches"])
+            for rec in r["records"]:
+                if "ms" not in rec:
+                    continue
+                if "by_kind" in rec:
+                    kinds = ", ".join(f"{k} {v['calls']:.0f} calls {v['bytes'] / 1e9:.3f} GB "
+                                      f"{rec['seconds_by_kind'][k]['seconds'] * 1e3:.1f} ms"
+                                      for k, v in sorted(rec["by_kind"].items()))
+                    colls = (f"collectives {rec['collective_ms']:.1f} ms (counted, each "
+                             f"synchronized, host clock): {kinds}")
+                else:
+                    colls = "collectives not counted (no OpCounter, no synchronization)"
+                log(f"[train_tp] rank {r['rank']}/{r['ranks']} (data, model) = {r['mesh']} step "
+                    f"{rec['step']}: loss {rec['loss']:.6f}, {rec['ms']:.1f} ms, {colls}; peak "
+                    f"{rec['peak'] / 2**30:.2f} GiB, flash_attn {rec['launches']}")
+            steps = [rec for rec in r["records"] if "ms" in rec]
+            require([rec["step"] for rec in steps] == list(range(1, TP_STEPS + 1)),
+                    f"tensor-parallel steps {[rec['step'] for rec in steps]}")
+            require(all(rec["launches"] == per_step for rec in steps),
+                    f"rank {r['rank']}: flash_attn launched {[rec['launches'] for rec in steps]}"
+                    f" times a step, expected {per_step}")
+            require(r["launches"]["flash_attn"] == r["wgmma"] == per_step * TP_STEPS,
+                    f"rank {r['rank']}: flash_attn launches {r['launches']['flash_attn']} "
+                    f"(tensor cores {r['wgmma']}), expected {per_step * TP_STEPS}")
+            log(f"[train_tp] rank {r['rank']}: step {TP_STEPS} under torch.profiler: device "
+                f"busy {r['busy']} (this rank's kernels)")
+        losses = {rec["step"]: rec["loss"] for rec in tp[0]["records"] if "ms" in rec}
+        require(all({rec["step"]: rec["loss"] for rec in r["records"] if "ms" in rec} == losses
+                    for r in tp), "the ranks' losses differ")
+        diffs = {s: rel(x, want[s]) for s, x in losses.items()}
+        require(diffs[1] <= MESH_STEP1_TOL and max(diffs.values()) <= MESH_LOSS_TOL,
+                f"tensor-parallel losses {losses} against phase train's {want}: {diffs}")
+        log(f"[train_tp] tensor parallelism over (data, model) = {TP_SHAPE}, {MESH_RANKS} ranks "
+            f"({tp[0]['backend']} on {tp[0]['device']}), {n_layers} layers, "
+            f"{api.cfg.n_heads // TP_SHAPE[1]} of {api.cfg.n_heads} heads and "
+            f"{api.cfg.vocab_size // TP_SHAPE[1]} of {api.cfg.vocab_size} vocabulary rows a "
+            f"rank, batch {batch} x {seq} in {micro} microbatches: losses {losses}; relative "
+            "to phase train's " + ", ".join(f"step {s} {d:.3g}" for s, d in diffs.items())
+            + f" (limits {MESH_STEP1_TOL} at step 1, {MESH_LOSS_TOL}); the blocks each rank "
+            "shares with another (the norms, and every leaf across data ranks) agree after "
+            "every step")
+
+        # (2) the step-2 checkpoint on a (2, 1) data-parallel mesh and on one process
+        saved = _checkpoint_digest(api, tmp / "tp", TP_CKPT_AT)
+        rs = [r["restore"] for r in runs]
+        for r in rs:
+            _count_into(total, r["launches"])
+            first = r["records"][0]
+            require(first["step"] == TP_CKPT_AT and first["restored"] == saved,
+                    f"rank {r['rank']} restored step {first['step']} with digest "
+                    f"{first['restored'][:16]}, the checkpoint holds {saved[:16]}")
+        (rec3,) = [rec for rec in rs[0]["records"] if "ms" in rec]
+        require(all([rec for rec in r["records"] if "ms" in rec][0]["digest"] == rec3["digest"]
+                    for r in rs), "the restored replicas differ")
+        one_dir = tmp / "one"
+        shutil.copytree(tmp / "tp" / f"step_{TP_CKPT_AT:09d}",
+                        one_dir / f"step_{TP_CKPT_AT:09d}", copy_function=os.link)
+        data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch,
+                            seed=0)
+        records: list = []
+        _zero_counts()
+        _mesh_trainer(api, data, OptConfig(lr=1e-3, warmup_steps=2), one_dir, TP_CKPT_AT + 1,
+                      micro, None, dev, records).run()
+        lc = _read_counts()
+        _count_into(total, lc)
+        require(lc["flash_attn"] == per_step, f"flash_attn launched {lc['flash_attn']} times "
+                "in the restore on one process")
+        require(records[0]["restored"] == saved, "the restore on one process differs from the "
+                "checkpoint")
+        (one3,) = [rec for rec in records if "ms" in rec]
+        d3 = {"(2, 1)": rel(rec3["loss"], losses[3]), "one": rel(one3["loss"], losses[3])}
+        require(max(d3.values()) <= MESH_LOSS_TOL,
+                f"step {TP_CKPT_AT + 1} after the restores: (2, 1) {rec3['loss']}, one process "
+                f"{one3['loss']}, against the tensor-parallel {losses[3]}")
+        log(f"[train_tp] the (1, 2) ranks' step-{TP_CKPT_AT} checkpoint (whole leaves) restored "
+            f"bit for bit on a (2, 1) data-parallel mesh and on one process; step "
+            f"{TP_CKPT_AT + 1} loss {rec3['loss']:.6f} and {one3['loss']:.6f}, relative to the "
+            f"tensor-parallel step {d3['(2, 1)']:.3g} and {d3['one']:.3g}; (2, 1) step "
+            f"{rec3['ms']:.1f} ms, collectives {rec3['collective_ms']:.1f} ms")
+        _free(dev)
+    log(f"[train_tp] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+# the dryrun phase: cells of the multi-pod dry run, on the host's CPU
+DRYRUN_CELLS = [("qwen1_5_0_5b", "train_4k"), ("qwen1_5_0_5b", "decode_32k"),
+                ("yi_6b", "train_4k")]
+
+
+def dryrun_worker(out_dir: str) -> int:
+    """The dry run's cells (``DRYRUN_CELLS``) and the EM cell on both
+    production meshes, records written to ``out_dir``: a process of its own,
+    so that its fake 256- and 512-rank groups meet no other phase's."""
+    from repro_torch.launch import dryrun
+
+    for multi_pod in (False, True):
+        for arch, shape in DRYRUN_CELLS:
+            dryrun._save(dryrun.lower_cell(arch, shape, multi_pod), out_dir)
+        dryrun._save(dryrun.lower_em_cell(multi_pod), out_dir)
+    return 0
+
+
+def start_dryrun() -> tuple:
+    """Start phase dryrun's process (it runs on the CPU beside the card's
+    phases): (process, its records' directory, the start time)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
+    proc = subprocess.Popen([sys.executable, "chip_smoke.py", "--dryrun-worker", tmp],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                                 "CUDA_VISIBLE_DEVICES": ""})
+    return proc, tmp, time.perf_counter()
+
+
+def phase_dryrun(started: tuple | None = None) -> None:
+    """The multi-pod dry run on this machine's CPU (see the module
+    docstring): every record's model counts against the port's own
+    functions, and its roofline terms.  ``started``: :func:`start_dryrun`'s
+    process, already running."""
+    import shutil
+
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import active_param_count
+    from repro_torch.launch.sharding import cast_params
+    from repro_torch.models.param import param_count
+    from repro_torch.models.registry import get_model
+
+    import torch
+
+    proc, tmp, t0 = started or start_dryrun()
+    try:
+        _, err = proc.communicate(timeout=900)
+        require(proc.returncode == 0, f"the dry run failed:\n{err[-3000:]}")
+        recs = roofline.load(tmp)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_n = 2 * (len(DRYRUN_CELLS) + 1)
+    require(len(recs) == want_n and all(r["status"] == "ok" for r in recs),
+            f"the dry run wrote {len(recs)} records, expected {want_n} ok")
+    for r in recs:
+        if r["kind"] != "em_round":
+            cfg, shape = get_config(r["arch"]), SHAPES[r["shape"]]
+            specs = get_model(cfg).param_specs()
+            if shape.kind == "decode":
+                specs = cast_params(specs, torch.bfloat16)
+            n, act = param_count(specs), active_param_count(cfg, specs)
+            tokens = shape.global_batch * (shape.seq_len if shape.kind == "train" else 1)
+            flops = (6 if shape.kind == "train" else 2) * act * tokens
+            require((r["params"], r["active_params"], r["tokens_per_step"], r["model_flops"])
+                    == (n, act, tokens, float(flops)),
+                    f"{r['arch']} x {r['shape']}: model counts {r['params']}, "
+                    f"{r['active_params']}, {r['tokens_per_step']}, {r['model_flops']} against "
+                    f"{n}, {act}, {tokens}, {flops}")
+        t = roofline.terms(r)
+        log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: per rank {r['hlo_flops']:.4g} "
+            f"FLOPs, {r['hlo_bytes']:.4g} bytes, {r['collective_wire_bytes']:.4g} wire bytes "
+            f"({r['collective_cross_pod_bytes']:.4g} cross-pod), arguments "
+            f"{r['mem']['argument_bytes'] / 2**30:.2f} GiB; roofline at the H100's datasheet "
+            f"constants: compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+            f"collective {t['collective_s']:.4g} s, {t['bound']}-bound, MFU {t['mfu']:.3f}; "
+            f"built in {r['lower_s']} + {r['compile_s']} s (CPU)")
+    log(f"[dryrun] {len(recs)} records on the CPU, read {time.perf_counter() - t0:.1f} s after "
+        "its start (it runs beside the training phases)")
+
+
 def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     """Where the matcher's time goes: the first ``max_evals`` MMP evaluations
     (cover excluded) once more under torch.profiler, device activity only;
@@ -3456,6 +3810,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--train-mesh-worker", metavar="SPEC",
                     help="a rank of the train_mesh phase (REPRO_SHARD_* set by the phase, "
                          "its jobs in the JSON file SPEC); prints no result line")
+    ap.add_argument("--train-tp-worker", metavar="SPEC",
+                    help="a rank of the train_tp phase (REPRO_SHARD_* set by the phase, its "
+                         "settings in the JSON file SPEC); prints no result line")
+    ap.add_argument("--dryrun-worker", metavar="DIR",
+                    help="the dryrun phase's process: write its records to DIR; prints no "
+                         "result line")
     args = ap.parse_args(argv)
     if args.crash_worker:
         return crash_worker(args.crash_worker, args.crash_device)
@@ -3463,6 +3823,10 @@ def main(argv: list[str] | None = None) -> int:
         return shard_worker(args.shard_worker, args.shard_device)
     if args.train_mesh_worker:
         return train_mesh_worker(args.train_mesh_worker, args.shard_device)
+    if args.train_tp_worker:
+        return train_tp_worker(args.train_tp_worker, args.shard_device)
+    if args.dryrun_worker:
+        return dryrun_worker(args.dryrun_worker)
     try:
         import torch
     except ImportError:
@@ -3497,8 +3861,11 @@ def main(argv: list[str] | None = None) -> int:
     import tempfile
 
     keep = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_ckpt_", dir=ROOT))
+    dry = start_dryrun()  # on the CPU, beside the training phases on the card
     train_launches, train = phase_train(dev, keep=keep)
     mesh_launches = phase_train_mesh(dev, train)
+    tp_launches = phase_train_tp(dev, train)
+    phase_dryrun(dry)
     phase_profile(dev, resolved["mmp"])
 
     smi = subprocess.run(
@@ -3520,7 +3887,7 @@ def main(argv: list[str] | None = None) -> int:
                       + stream_launches[name] + matchers_launches[name] + dedup_launches[name]
                       + serving_launches[name] + shard_launches[name] + lm_launches[name]
                       + families_launches[name] + train_launches[name]
-                      + mesh_launches[name]),
+                      + mesh_launches[name] + tp_launches[name]),
             launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
                               "parallel": parallel_launches[name],
                               "stream": stream_launches[name],
@@ -3530,7 +3897,8 @@ def main(argv: list[str] | None = None) -> int:
                               "shard": shard_launches[name], "lm": lm_launches[name],
                               "lm_families": families_launches[name],
                               "train": train_launches[name],
-                              "train_mesh": mesh_launches[name]},
+                              "train_mesh": mesh_launches[name],
+                              "train_tp": tp_launches[name]},
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],

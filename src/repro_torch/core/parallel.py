@@ -66,9 +66,21 @@ reads for MMP's messages are all-gathered back to whole bins, padded to
 equal slices.  The grounding cache and the promoter stay replicated:
 every rank grounds whole bins and takes its slice, so the cache's
 counters equal the one-rank run's.  A one-rank mesh (``mesh=None``) has
-no collective.  ``build_round_fn``/``build_bin_round_fn``, which the
-reference keeps for its multi-pod dry-run, raise until the dry run
-(``ROADMAP.md`` Queue 1 item 17).
+no collective.  The full round and the legacy round run each bin through
+the round functions :func:`build_bin_round_fn` / :func:`build_round_fn`
+(one callable per spec, mesh and axes): a rank's rows in; the matcher;
+the bitset OR-reduced over ``axes``; on a mesh that spans processes, the
+rows' ``x`` and labels all-gathered back to whole bins, as the reference
+gathers them in its ``shard_map`` body.  With ``axes=()`` a round
+function makes no collective, as the reference's makes none over no
+axes: the full round calls them so and makes its own collectives once a
+round over all its bins (one bitset reduction, and for MMP one gather of
+the labels), where a collective a bin would cost an all-reduce and two
+all-gathers per bin.  The legacy round reduces and gathers per bin, as
+the reference's does.  The dry run lowers :func:`build_round_fn`'s
+callable as its EM cell.  Neither is cached: building the closure costs
+nothing (the reference caches a jit compile), and an ``EMMesh`` is hashed
+by identity, so a cache would only keep every mesh alive.
 """
 
 from __future__ import annotations
@@ -108,13 +120,8 @@ from repro_torch.kernels.common import (
     resolve_device,
 )
 from repro_torch.launch.mesh import EMMesh, em_service_mesh
-from repro_torch.models.param import unported_fn
 from repro_torch.obs import profiler_session, record_transfer
 from repro_torch.obs import span as obs_span
-
-
-build_round_fn = unported_fn("build_round_fn", item=17)
-build_bin_round_fn = unported_fn("build_bin_round_fn", item=17)
 
 
 def make_em_mesh(n_shards: int | None = None, axis: str = "data", device=None) -> EMMesh:
@@ -867,6 +874,51 @@ def _bin_full_round(spec: BinRoundSpec, g, uidx, pmask, m_bits):
     return x, lab, _scatter_bits(uidx, x & inuniv, Np) | m_bits
 
 
+def build_bin_round_fn(spec: BinRoundSpec, mesh: EMMesh, axes: tuple[str, ...]):
+    """The full round of one bin over ``mesh``: a callable ``(g, uidx,
+    pmask, active, m_bits) -> (x, lab, bits)`` taking this rank's slice of
+    the bin's rows (``g`` the cached grounding tensors, ``active`` a host
+    bool mask of the slice's active rows; slices of equal length on every
+    rank).  Only the active rows are evaluated (lanes never interact): the
+    reference evaluates the inactive ones too and masks them out of the
+    bitset, here their ``x`` is False and their labels ``num_pairs``.  The
+    bitset is OR-reduced over ``axes``, and on a mesh that spans processes
+    the rows' ``x`` and labels come back gathered, whole bins in rank
+    order; with ``axes=()`` there is no collective and all three are this
+    rank's."""
+    gather = bool(axes) and mesh_spans_processes(mesh)
+
+    def round_fn(g, uidx, pmask, active, m_bits):
+        mine = np.flatnonzero(active)
+        n, P = pmask.shape
+        if len(mine) == n:  # every row: nothing to place
+            x, lab, bits = _bin_full_round(spec, g, uidx, pmask, m_bits)
+        else:
+            dev = pmask.device
+            x = torch.zeros((n, P), dtype=torch.bool, device=dev)
+            lab = torch.full((n, P), spec.num_pairs, dtype=torch.int32, device=dev)
+            bits = m_bits
+            if len(mine):
+                rows = torch.as_tensor(mine, device=dev)
+                x[rows], lab[rows], bits = _bin_full_round(
+                    spec, tuple(a[rows] for a in g), uidx[rows], pmask[rows], m_bits)
+        mesh.rows_evaluated += len(mine)
+        bits = _reduce_bits(mesh, axes, bits)
+        if gather:
+            x, lab = (mesh.gather_rows(t).flatten(0, 1) for t in (x, lab))
+        return x, lab, bits
+
+    return round_fn
+
+
+def _reduce_bits(mesh: EMMesh, axes: tuple[str, ...], bits):
+    """OR ``bits`` over the mesh axes ``axes`` (an EM mesh has one)."""
+    unknown = set(axes) - set(mesh.axis_names)
+    if unknown:
+        raise ValueError(f"axes {sorted(unknown)} are not the mesh's {mesh.axis_names}")
+    return mesh.reduce_bits(bits) if axes else bits
+
+
 # ---------------------------------------------------------------------------
 # Legacy per-round host loop (the differential baseline)
 # ---------------------------------------------------------------------------
@@ -907,6 +959,26 @@ def _device_round(spec: RoundSpec, device, entity_mask, coauthor, sim_level,
         else:
             x, lab = _infer(g.u, g.C, ev_pos, ev_neg, g.valid)
     return x, lab, _scatter_bits(uidx, x & pmask, Np) | m_bits
+
+
+def build_round_fn(spec: RoundSpec, mesh: EMMesh, axes: tuple[str, ...]):
+    """The legacy round of one bin over ``mesh``: a callable ``(entity_mask,
+    coauthor, sim_level, pair_mask, uidx, m_bits) -> (x, lab, bits)`` over
+    this rank's rows (host arrays, equal row counts on every rank), which
+    re-grounds them (:func:`_device_round`), ORs the bitset over ``axes``,
+    and on a mesh that spans processes gathers the rows' ``x`` and labels
+    back to the whole batch in rank order (none of it with ``axes=()``)."""
+    gather = bool(axes) and mesh_spans_processes(mesh)
+
+    def round_fn(entity_mask, coauthor, sim_level, pair_mask, uidx, m_bits):
+        x, lab, bits = _device_round(spec, mesh.device, entity_mask, coauthor, sim_level,
+                                     pair_mask, uidx, m_bits)
+        bits = _reduce_bits(mesh, axes, bits)
+        if gather:
+            x, lab = (mesh.gather_rows(t).flatten(0, 1) for t in (x, lab))
+        return x, lab, bits
+
+    return round_fn
 
 
 def _matcher_spec(matcher, k: int, Np: int) -> RoundSpec:
@@ -1272,23 +1344,16 @@ def _run_parallel_impl(
                 evals += len(rows_np)
                 P = bins[k].pair_mask.shape[1]
                 spec = BinRoundSpec(kind=base_kind, num_pairs=P, universe_size=Np)
-                if want_labels:
-                    # the rank's slice: padded bins make them all equal
-                    lab_local = torch.full((hi - lo, P), P, dtype=torch.int32, device=dev)
-                    labelled.append((k, rows_np, lab_local))
-                if not len(mine):
-                    continue
-                mesh.rows_evaluated += len(mine)
-                rows = (None if len(mine) == len(am)
-                        else torch.as_tensor(mine, device=dev))
-                g = tuple(_take(a, rows) for a in ground_of(k))
-                x, lab, bits = _bin_full_round(
-                    spec, g, _take(dev_uidx[k], rows), _take(dev_pmask[k], rows),
-                    m_bits_dev,
-                )
+                # no collective a bin: the round's own come after the loop
+                round_fn = build_bin_round_fn(spec, mesh, ())
+                active_local = np.zeros(hi - lo, dtype=bool)
+                active_local[mine - lo] = True
+                sl = slice(lo, hi)
+                _, lab, bits = round_fn(tuple(a[sl] for a in ground_of(k)), dev_uidx[k][sl],
+                                        dev_pmask[k][sl], active_local, m_bits_dev)
                 hit |= bits
                 if want_labels:
-                    lab_local[torch.as_tensor(mine - lo, device=dev)] = lab
+                    labelled.append((k, rows_np, lab))
             new_bits = np.array(host_array(mesh.reduce_bits(hit))) | m_bits
         round_msgs: list[list[int]] = []
         if labelled:
@@ -1488,11 +1553,9 @@ def _run_parallel_legacy(
             )
             lo, hi = mesh.row_slice(len(sel[0]))
             mesh.rows_evaluated += max(min(hi, n_rows) - lo, 0)
-            x, lab, bits = _device_round(spec, device, *(a[lo:hi] for a in sel), m_bits_dev)
-            if mesh_spans_processes(mesh):
-                bits = mesh.reduce_bits(bits)
-                x = mesh.gather_rows(x).flatten(0, 1)[:n_rows]
-                lab = mesh.gather_rows(lab).flatten(0, 1)[:n_rows]
+            round_fn = build_round_fn(spec, mesh, tuple(mesh.axis_names))
+            x, lab, bits = round_fn(*(a[lo:hi] for a in sel), m_bits_dev)
+            x, lab = x[:n_rows], lab[:n_rows]
             dispatches += 1
             x = host_array(x)
             new_bits |= host_array(bits)

@@ -2,15 +2,22 @@
 
 Routing policy (``ops.py`` of every kernel): a wrapper runs its kernel's
 plain PyTorch version only because the tensors it was given lie on the
-CPU.  On a CUDA tensor it launches the hand-written kernel (built by
-:mod:`repro_torch.kernels.build`) or raises; there is no fallback and no
-switch that turns the kernels off.
+CPU, or on ``meta`` (shapes without data: the dry run's abstract step,
+where there is nothing to launch on).  On a CUDA tensor it launches the
+hand-written kernel (built by :mod:`repro_torch.kernels.build`) or
+raises; there is no fallback and no switch that turns the kernels off.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version on ``t``: a CPU tensor, or a
+    ``meta`` one (no data; never a CUDA tensor)."""
+    return t.device.type in ("cpu", "meta")
 
 
 def round_up(x: int, m: int) -> int:

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand
+from repro_torch.kernels.common import check_operand, takes_plain
 
 NEG_INF = -1e30
 # query rows a block of the blocked backward (the reference's ATTN_Q_BLOCK)
@@ -133,7 +133,7 @@ def attention(q, k, v, scale, *, causal: bool = True):
 
     On CUDA tensors with grad mode on and an input that requires a gradient,
     the launch runs inside :class:`FlashAttention`, so autograd follows it."""
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return attention_plain(q, k, v, scale, causal=causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, scale, causal)

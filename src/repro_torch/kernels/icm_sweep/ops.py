@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand
+from repro_torch.kernels.common import check_operand, takes_plain
 
 
 def sweep_batched_plain(u, C, X):
@@ -29,7 +29,7 @@ def sweep_batched_plain(u, C, X):
 
 def sweep_batched(u, C, X):
     """u (B, P), C (B, P, P), X (B, S, P) -> (B, S, P) f32."""
-    if X.device.type == "cpu":
+    if takes_plain(X):
         return sweep_batched_plain(u, C, X)
     B, S, P = X.shape
     check_operand("u", u, (B, P), X.device)

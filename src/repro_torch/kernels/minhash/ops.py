@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand
+from repro_torch.kernels.common import check_operand, takes_plain
 
 # Hash values live in [0, EMPTY); EMPTY marks "no shingle present".
 EMPTY = 2**30
@@ -58,7 +58,7 @@ def _launch(X, A, H: int, stride_h: int, stride_d: int):
 
 def minhash(X, A):
     """X (N, D) f32 presence, A (H, D) int32 -> (N, H) int32 signatures."""
-    if X.device.type == "cpu":
+    if takes_plain(X):
         return minhash_plain(X, A)
     (N, D), H = X.shape, A.shape[0]
     check_operand("X", X, (N, D), X.device)
@@ -68,7 +68,7 @@ def minhash(X, A):
 
 def minhash_transposed(X, At):
     """``minhash(X, At.T)`` from the transposed table At (D, H) int32."""
-    if X.device.type == "cpu":
+    if takes_plain(X):
         return minhash_plain(X, At.T)
     (N, D), H = X.shape, At.shape[1]
     check_operand("X", X, (N, D), X.device)

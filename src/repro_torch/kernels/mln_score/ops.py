@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand
+from repro_torch.kernels.common import check_operand, takes_plain
 
 
 def score_sets_plain(u, C, X):
@@ -34,7 +34,7 @@ def score_sets_plain(u, C, X):
 
 def score_sets(u, C, X):
     """u (B, P), C (B, P, P), X (B, S, P) -> (B, S) unnormalized log P."""
-    if X.device.type == "cpu":
+    if takes_plain(X):
         return score_sets_plain(u, C, X)
     B, S, P = X.shape
     check_operand("u", u, (B, P), X.device)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand
+from repro_torch.kernels.common import check_operand, takes_plain
 
 
 def sim_above_plain(A, B, threshold: float):
@@ -27,7 +27,7 @@ def sim_above_plain(A, B, threshold: float):
 
 def sim_above(A, B, threshold: float):
     """A (M, F), B (N, F) -> (M, N) f32, entries < ``threshold`` zeroed."""
-    if A.device.type == "cpu":
+    if takes_plain(A):
         return sim_above_plain(A, B, threshold)
     (M, F), N = A.shape, B.shape[0]
     check_operand("A", A, (M, F), A.device)

@@ -19,6 +19,15 @@ process group: one rank a process, each on one device.
   the tensors through host memory themselves.
 
 Any other layout raises, and nothing tries NCCL and falls back to gloo.
+On CUDA tensors gloo carries ``all_reduce``, ``reduce_scatter`` and the
+c10d ``all_gather_into_tensor``, but its *functional* all-gather — the one
+DTensor issues to gather a shard — kills the process (PyTorch 2.11 on the
+H100 machine, measured: a segmentation fault on two ranks sharing a card);
+so a CUDA rank that joins a gloo group composes DTensor's functional
+all-gathers from the c10d ``all_gather_into_tensor`` of the same group
+(:func:`compose_gloo_cuda_collectives`): the same bytes and ranks, counted
+as what runs (a ``c10d`` all-gather in
+:class:`repro_torch.launch.hlo_analysis.OpCounter`).
 Host objects — the probe's candidate-id union and the digest gather —
 always go through a gloo group made beside the device group.  Every
 group gets a timeout (``REPRO_SHARD_TIMEOUT_S``, default 300 s), so a
@@ -279,7 +288,46 @@ def init_em_distributed(
         timeout=_timeout(),
     )
     _joined["device"] = dev
+    if backend == "gloo" and dev.type == "cuda":
+        compose_gloo_cuda_collectives()
     return True
+
+
+def gathered(t: torch.Tensor, pg) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order, (ranks, *t.shape), by the
+    c10d ``all_gather_into_tensor`` of ``pg``."""
+    out = torch.empty((pg.size() * t.numel(),), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous().reshape(-1), group=pg)
+    return out.view(pg.size(), *t.shape)
+
+
+def compose_gloo_cuda_collectives() -> None:
+    """Compose DTensor's functional all-gathers of CUDA tensors on gloo
+    groups from the c10d ``all_gather_into_tensor`` (module docstring), once
+    a process: ``torch.distributed._functional_collectives``' all-gather
+    entry points are wrapped; every other group and device takes the
+    original."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gloo_cuda(t, group, tag):
+        pg = _resolve_process_group(funcol._resolve_group_name(group, tag))
+        return pg if t.device.type == "cuda" and dist.get_backend(pg) == "gloo" else None
+
+    for name in ("all_gather_tensor", "all_gather_single"):
+        original = getattr(funcol, name, None)
+        if original is None or getattr(original, "composed", False):
+            continue
+
+        def gather(self, gather_dim, group, tag="", _original=original):
+            pg = gloo_cuda(self, group, tag)
+            if pg is None:
+                return _original(self, gather_dim, group, tag)
+            out = gathered(self, pg)
+            return out.flatten(0, 1) if gather_dim == 0 else torch.cat(out.unbind(0), gather_dim)
+
+        gather.composed = True
+        setattr(funcol, name, gather)
 
 
 @dataclasses.dataclass(eq=False)

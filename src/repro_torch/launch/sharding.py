@@ -24,8 +24,9 @@ trees and a mesh's axis names and sizes:
 * **launch heuristics**: microbatch count and remat group size.
 
 The data-parallel ``Trainer`` reads :func:`repro_torch.models.param.
-shardings`; the rest of this layer is the reference's dry-run policy,
-ported exactly for the PyTorch dry run (``ROADMAP.md`` Queue 1 item 17).
+shardings`; the tensor-parallel one lays its parameters out by
+:func:`param_shardings`, and the dry run (:mod:`repro_torch.launch.dryrun`)
+applies the whole layer, the reference's policy ported exactly.
 
 The EM side partitions two things across the ranks of the service mesh
 (:mod:`repro_torch.launch.mesh`): the LSH bucket map, by a deterministic
@@ -279,6 +280,21 @@ def state_shardings(tree, mesh, *, pod_batch: bool = True):
         return NamedSharding(mesh, drop_indivisible(sp, ps.shape, mesh))
 
     return spec_tree_map(f, tree)
+
+
+def distribute_state(tree, shardings):
+    """DTensors of a tree of whole tensors (every rank holding the same):
+    each leaf this rank's block under its :class:`~repro_torch.launch.mesh.
+    NamedSharding` of ``shardings`` (a tree of the same keys), with no
+    collective; ``meta`` leaves give ``meta`` blocks."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: distribute_state(v, shardings[k]) for k, v in tree.items()}
+    ns = shardings
+    local = tree[ns.block(tree.shape)]
+    return DTensor.from_local(local.contiguous(), ns.mesh, ns.placements, run_check=False,
+                              shape=tree.shape, stride=tree.contiguous().stride())
 
 
 def param_shardings(tree, mesh):

@@ -18,7 +18,10 @@ latest checkpoint there, whatever rank count wrote it.
 share a card or the CPU, NCCL with a card each), builds a ``("data",)``
 ``DeviceMesh`` over the ranks, prints ``devices=N``, and trains
 data-parallel: ``--batch`` is the global batch, split over the ranks.
-The reference's ``--dry`` compile analysis is item 17 (``ROADMAP.md``).
+The reference's launcher advertises a ``--dry`` compile analysis in its
+docstring, but its argument parser has no such flag and it builds only a
+``("data",)`` mesh; so this launcher has neither.  The compile analysis is
+the dry run, :mod:`repro_torch.launch.dryrun`.
 """
 
 from __future__ import annotations

@@ -47,7 +47,9 @@ from repro_torch.models.layers import (
     mlp,
     mlp_specs,
     mp,
+    row_project,
     softmax_xent,
+    shard_batch,
     unembed,
 )
 from repro_torch.models.param import Params, PSpec, f32_param, layer_group, stack
@@ -139,6 +141,7 @@ def _attn_full(cfg: ModelConfig, p, x, *, causal: bool):
 
 
 def _enc_layer(cfg: ModelConfig, lp, x):
+    x = shard_batch(x)
     x = x + _attn_full(cfg, lp["attn"], layernorm(lp["ln1"], x, cfg.norm_eps), causal=False)
     x = x + mlp(cfg, lp["ffn"], layernorm(lp["ln2"], x, cfg.norm_eps))
     return x, torch.zeros((), device=x.device)
@@ -153,6 +156,7 @@ def encode(cfg: ModelConfig, params, frames):
 
 
 def _dec_layer_train(cfg: ModelConfig, lp, x, memory):
+    x = shard_batch(x)
     x = x + _attn_full(cfg, lp["self_attn"], layernorm(lp["ln1"], x, cfg.norm_eps), causal=True)
     x = x + cross_attention_train(
         cfg, lp["cross_attn"], layernorm(lp["ln_x"], x, cfg.norm_eps), memory)
@@ -178,7 +182,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 def logits_of(cfg: ModelConfig, params, hidden):
-    return unembed(params["embed"], hidden)
+    return shard_batch(unembed(params["embed"], hidden), model_dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +231,7 @@ def _cross_decode(cfg: ModelConfig, p, x, cross):
     probs = torch.softmax(scores, dim=-1)
     o = mixed_einsum("bkgst,bkth->bskgh", probs.to(cross["v"].dtype), cross["v"])
     o = o.reshape(B, 1, h * hd).to(x.dtype)
-    return torch.matmul(o, mp(p["wo"]))
+    return row_project(o, p["wo"])
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch):

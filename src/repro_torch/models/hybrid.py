@@ -38,6 +38,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_spec,
     softmax_xent,
+    shard_batch,
     unembed,
 )
 from repro_torch.models.param import Params, f32_param, layer_group, stack
@@ -124,8 +125,10 @@ def _ffn(cfg: ModelConfig, i: int, p, h):
 
 def _period_train(cfg: ModelConfig, p, x, positions):
     aux_total = torch.zeros((), device=x.device)
+    x = shard_batch(x)
     for i in range(_period(cfg)):
         lp = p[f"l{i}"]
+        x = shard_batch(x)
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         if _is_attn(cfg, i):
             x = x + attention_train(cfg, lp["mixer"], h, positions)
@@ -142,7 +145,7 @@ def forward_train(cfg: ModelConfig, params, tokens):
     load-balance loss summed over the MoE sublayers."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = embed_lookup(params["embed"], tokens)
+    x = shard_batch(embed_lookup(params["embed"], tokens))
     body = functools.partial(_period_train, cfg)
     x, aux = stacked_scan(body, x, params["periods"], 0, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
@@ -155,7 +158,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 def logits_of(cfg: ModelConfig, params, hidden):
-    return unembed(params["lm_head"], hidden)
+    return shard_batch(unembed(params["lm_head"], hidden), model_dim=-1)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:

@@ -100,20 +100,6 @@ def in_f32(tree):
     return spec_tree_map(lambda ps: dataclasses.replace(ps, dtype=torch.float32), tree)
 
 
-def unported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
-def unported_fn(name: str, item: int):
-    """A stand-in for the reference's function ``name`` that raises
-    :func:`unported`."""
-    def stub(*args, **kwargs):
-        raise unported(name, item)
-
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
 def abstract_params(tree):
     """``meta``-device tensors of each leaf's shape and dtype (no storage)."""
     return spec_tree_map(lambda ps: torch.empty(ps.shape, dtype=ps.dtype, device="meta"), tree)

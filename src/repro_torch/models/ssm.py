@@ -23,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mp
+from repro_torch.models.layers import (
+    _contiguous_grads, _is_dtensor, mp, row_project, shard_spec,
+)
 from repro_torch.models.param import PSpec, in_bf16
 
 
@@ -88,6 +90,45 @@ def _chunk_scan(dt, Bm, Cm, A, u, h0):
     return y, inp[:, -1]
 
 
+def _scan(dt, Bm, Cm, A, u, chunk: int):
+    """The selective scan over the whole sequence, chunk by chunk from a
+    zero state: y (B, S, Di) f32."""
+    B, S, di = u.shape
+    h = torch.zeros((B, di, A.shape[-1]), dtype=torch.float32, device=u.device)
+    ys = []
+    for lo in range(0, S, chunk):
+        sl = slice(lo, min(lo + chunk, S))
+        y, h = _chunk_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], A, u[:, sl], h)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def _scan_sharded(dt, Bm, Cm, A, u, chunk: int):
+    """:func:`_scan` of DTensors on each rank's rows and channels
+    (``local_map``): the recurrence is elementwise over the batch and the
+    channels, so each rank's block is the whole scan of its block, the
+    same numbers.  ``Bm``/``Cm`` are laid out with ``u``'s rows and every
+    channel; ``A`` with ``u``'s channels."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = u.device_mesh
+    u_pl = [p if p.is_shard() and p.dim in (0, 2) else Replicate() for p in u.placements]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in u_pl]
+    chans = [Shard(0) if p.is_shard(2) else Replicate() for p in u_pl]
+    dt, u = (t.redistribute(mesh, u_pl) for t in (dt, u))
+    Bm, Cm = (t.redistribute(mesh, rows) for t in (Bm, Cm))
+    A = A.redistribute(mesh, chans)
+    # a rank's channels read all of Bm/Cm, and its rows all of A
+    bc_grad = [Partial() if p.is_shard(2) else r for p, r in zip(u_pl, rows)]
+    a_grad = [Partial() if p.is_shard(0) else c for p, c in zip(u_pl, chans)]
+    return local_map(
+        lambda d, b, c, a, x: _scan(*_contiguous_grads(d, b, c, a, x), chunk),
+        out_placements=u_pl, in_placements=(u_pl, rows, rows, chans, u_pl),
+        in_grad_placements=(u_pl, bc_grad, bc_grad, a_grad, u_pl), device_mesh=mesh,
+    )(dt, Bm, Cm, A, u)
+
+
 def ssm_forward(cfg: ModelConfig, p, x, *, chunk: int = 128):
     """Full-sequence selective SSM. x (B, S, D) bf16 -> (B, S, D)."""
     B, S, _ = x.shape
@@ -95,17 +136,15 @@ def ssm_forward(cfg: ModelConfig, p, x, *, chunk: int = 128):
     xz = torch.matmul(x, mp(p["in_proj"]))
     xs, z = xz[..., :di], xz[..., di:]
     u = F.silu(_causal_conv(p, xs).float()).to(x.dtype)
+    # re-pin (B, S, Di) to (dp, None, model), or the f32 dt/u tensors replicate
+    u = shard_spec(u, ("dp", None, "model"))
     dt, Bm, Cm, A = _ssm_params(cfg, p, u)
-    h = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32, device=x.device)
-    ys = []
-    for lo in range(0, S, chunk):
-        sl = slice(lo, min(lo + chunk, S))
-        y, h = _chunk_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], A, u[:, sl], h)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
+    dt = shard_spec(dt, ("dp", None, "model"))
+    y = _scan(dt, Bm, Cm, A, u, chunk) if not _is_dtensor(u) else _scan_sharded(
+        dt, Bm, Cm, A, u, chunk)
     y = y + u.float() * p["D"].float()
     y = y * F.silu(z.float())
-    return torch.matmul(y.to(x.dtype), mp(p["out_proj"]))
+    return row_project(y.to(x.dtype), p["out_proj"])
 
 
 def ssm_cache_specs(cfg: ModelConfig, batch: int) -> dict:
@@ -133,7 +172,7 @@ def ssm_decode(cfg: ModelConfig, p, x, cache):
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])
     y = y + u[:, 0].float() * p["D"].float()
     y = y * F.silu(z[:, 0].float())
-    out = torch.matmul(y.to(x.dtype), mp(p["out_proj"]))[:, None, :]
+    out = row_project(y.to(x.dtype), p["out_proj"])[:, None, :]
     cache["conv"].copy_(window[:, 1:])
     cache["h"].copy_(h)
     return out, cache

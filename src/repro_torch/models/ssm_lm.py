@@ -20,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    embed_lookup, embed_spec, rmsnorm, rmsnorm_spec, softmax_xent, unembed,
+    embed_lookup, embed_spec, rmsnorm, rmsnorm_spec, shard_batch, softmax_xent, unembed,
 )
 from repro_torch.models.param import Params, f32_param, layer_group, spec_tree_map, stack
 from repro_torch.models.scan_utils import stacked_scan
@@ -68,13 +68,14 @@ def load(cfg: ModelConfig, tree: dict, trainable: bool = False) -> MambaLM:
 
 
 def _layer_train(cfg: ModelConfig, p, x):
+    x = shard_batch(x)
     out = x + ssm.ssm_forward(cfg, p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps))
     return out, torch.zeros((), device=x.device)
 
 
 def forward_train(cfg: ModelConfig, params, tokens):
     """Hidden states (B, S, D) of a full sequence (the chunked scan)."""
-    x = embed_lookup(params["embed"], tokens)
+    x = shard_batch(embed_lookup(params["embed"], tokens))
     x, _ = stacked_scan(functools.partial(_layer_train, cfg), x, params["layers"],
                         cfg.remat_group)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -82,7 +83,7 @@ def forward_train(cfg: ModelConfig, params, tokens):
 
 def logits_of(cfg: ModelConfig, params, hidden):
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(table, hidden)
+    return shard_batch(unembed(table, hidden), model_dim=-1)
 
 
 def loss_fn(cfg: ModelConfig, params, batch):

@@ -44,6 +44,7 @@ from repro_torch.models.layers import (
     mp,
     rmsnorm,
     rmsnorm_spec,
+    shard_batch,
     softmax_xent,
     unembed,
 )
@@ -116,6 +117,7 @@ def _ffn(cfg: ModelConfig, p, x):
 
 
 def _layer_train(cfg: ModelConfig, p, x, positions):
+    x = shard_batch(x)
     normed = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla:
         x = x + mla_attend(cfg, p["attn"], normed, positions)[0]
@@ -138,6 +140,7 @@ def forward_train(cfg: ModelConfig, params, tokens, positions, extra=None):
         vis = torch.matmul(mp(extra["vision_embeds"]), mp(params["vision_proj"]))
         at = extra["vision_pos"].long()[..., None].expand(-1, -1, x.shape[-1])
         x = x.scatter(1, at, vis)
+    x = shard_batch(x)
     body = functools.partial(_layer_train, cfg)
     x, aux = stacked_scan(body, x, params["layers"], cfg.remat_group, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
@@ -145,7 +148,7 @@ def forward_train(cfg: ModelConfig, params, tokens, positions, extra=None):
 
 def logits_of(cfg: ModelConfig, params, hidden):
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(table, hidden)
+    return shard_batch(unembed(table, hidden), model_dim=-1)
 
 
 def make_positions(cfg: ModelConfig, tokens):
@@ -208,6 +211,7 @@ def decode_step(cfg: ModelConfig, params, cache, batch):
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed_lookup(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
+        x = shard_batch(x)
         x, _ = _layer_decode(cfg, lp, _layer_cache(cache, i), x, pos)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_of(cfg, params, x), cache

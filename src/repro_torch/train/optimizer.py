@@ -73,17 +73,21 @@ def global_norm(tree):
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and that
+    norm (``norm`` when the caller computed it: a sharded tree's)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return _map(lambda g: g.float() * scale, grads), norm
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state):
+def adamw_update(cfg: OptConfig, params, grads, state, norm=None):
     """One AdamW step. Returns (new_params, new_state, metrics); the new
-    parameters keep each parameter's dtype."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    parameters keep each parameter's dtype.  ``norm``: the gradients'
+    global norm, where the leaves are shards of a larger tree."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), step.float())

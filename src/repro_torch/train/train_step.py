@@ -16,8 +16,7 @@ checkpointing happens inside the model's layer loop
 (``cfg.remat_group``, :mod:`repro_torch.models.scan_utils`).
 
 **Over a mesh** (``mesh=``, a ``DeviceMesh`` of ``data`` and/or ``pod``
-ranks; a ``model`` axis of more than one rank raises, ROADMAP.md Queue 1
-item 17) every rank holds the whole model and its rows of each
+ranks) every rank holds the whole model and its rows of each
 microbatch (:func:`repro_torch.data.corpus.shard_batch`).  The reference
 computes one logical program over the global batch; here each rank
 accumulates its local gradient, and one bucketed all-reduce a step makes
@@ -37,8 +36,30 @@ the reference's stacked tree, with the residual ``err`` in that layout
 (:func:`error_state_of`); then AdamW, and the loss and metrics are
 averaged over ``pod``.
 
-Each mesh step keeps ``step.stats``: the host seconds in collectives
-(synchronized) and the bytes all-reduced by this rank in its last call.
+**Tensor parallelism** (a mesh whose ``model`` axis has more than one
+rank: ``("data", "model")`` or ``("pod", "data", "model")``): the model's
+parameters are DTensors laid out by the reference's specs
+(:func:`distribute_model`, ``launch/sharding.param_shardings``), and the
+batch's leaves DTensors with their rows over the data-parallel axes
+(:func:`dtensor_batch`).  The loss runs on them under the ambient mesh
+(``models.layers.use_mesh``), so DTensor places the layers' collectives
+and the activation pins lay the activations out; the loss is the global
+token mean.  Each gradient comes back laid out by DTensor's propagation
+(partial sums over ``data``, among others); the microbatches' gradients
+are accumulated so and redistributed once to their parameter's layout,
+which reduces them over the data-parallel axes only.  AdamW steps each
+rank's local shards in place, with the global norm summed over each
+leaf's sharded mesh dims (:func:`sharded_global_norm`); the moments are
+local shards too.  A checkpoint gathers the full leaves
+(:func:`gathered_state`), so it keeps the reference's layout and restores
+onto any ``(data, model)`` shape.
+
+Each data-parallel step keeps ``step.stats``: the host seconds in
+collectives (synchronized) and the bytes all-reduced by this rank in its
+last call.  A tensor-parallel step's collectives are DTensor's and it
+keeps no stats: a caller that wants them runs the step inside
+``launch.hlo_analysis.OpCounter``, which counts them by kind (and, with
+``timed``, synchronizes around each).
 """
 
 from __future__ import annotations
@@ -53,7 +74,7 @@ import torch.distributed as dist
 from repro_torch.data.corpus import batch_dim as _batch_dim
 from repro_torch.launch.mesh import mesh_axes, mesh_device
 from repro_torch.models.moe import GROUP_SIZE
-from repro_torch.models.param import layer_slices, leaves, stacked_tree, unported
+from repro_torch.models.param import layer_slices, leaves, stacked_tree
 from repro_torch.models.registry import ModelAPI
 from repro_torch.train import compress as complib
 from repro_torch.train.optimizer import OptConfig, adamw_update
@@ -147,12 +168,18 @@ def replicas_agree(named: dict, group=None) -> tuple[bool, str]:
     return all(d == mine for d in got), mine
 
 
+def tensor_parallel(mesh) -> bool:
+    """Whether ``mesh`` lays the model over a ``model`` axis of more than one rank."""
+    return mesh is not None and mesh_axes(mesh).get("model", 1) > 1
+
+
 def data_parallel_group(mesh):
-    """The process group of a mesh's data-parallel ranks (every rank: its
-    ``model`` axis must have one rank)."""
+    """The process group of a mesh's data-parallel ranks (every rank; a
+    tensor-parallel mesh reduces over DTensor's groups, and this is the
+    group of every rank)."""
     sizes = mesh_axes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise unported("tensor parallelism over the model axis", item=17)
+    if tensor_parallel(mesh):
+        return dist.group.WORLD
     if len(sizes) == 1:
         return mesh.get_group()
     if mesh.size() != dist.get_world_size():
@@ -223,6 +250,11 @@ def make_train_step(api: ModelAPI, opt_cfg: OptConfig, *, microbatches: int = 1,
     """Build the train step for this model (see the module docstring)."""
     if compress_pods and (mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("compress_pods=True needs a mesh with a 'pod' axis")
+    if tensor_parallel(mesh):
+        if compress_pods:
+            raise ValueError("the compressed cross-pod step is data-parallel: its mesh "
+                             "has no model axis of more than one rank")
+        return _tensor_parallel_step(api, opt_cfg, microbatches, mesh)
     ranks = int(np.prod(mesh.shape)) if mesh is not None else 1
     if mesh is not None:
         dp_group = data_parallel_group(mesh)
@@ -309,3 +341,211 @@ def make_train_step(api: ModelAPI, opt_cfg: OptConfig, *, microbatches: int = 1,
     train_step.stats = comm.stats
     return train_step
 
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+
+def param_layout(api: ModelAPI, mesh, names, specs=None) -> dict:
+    """Each parameter name's :class:`~repro_torch.launch.mesh.NamedSharding`
+    under the reference's layout (``launch/sharding.param_shardings`` of
+    ``specs``, by default the model's): a layer's leaf takes its stacked
+    leaf's spec without the layer axis."""
+    from repro_torch.launch.mesh import NamedSharding
+    from repro_torch.launch.sharding import param_shardings
+
+    tree = param_shardings(api.param_specs() if specs is None else specs, mesh)
+    out = {}
+    for name, ns in layer_slices_of(tree, names).items():
+        spec = ns.spec[1:] if any(part.isdigit() for part in name.split(".")) else ns.spec
+        out[name] = NamedSharding(mesh, spec)
+    return out
+
+
+def layer_slices_of(tree: dict, names) -> dict:
+    """The leaf of ``tree`` (stacked, reference-shaped) that each parameter
+    name reads, without indexing it."""
+    out = {}
+    for name in names:
+        node = tree
+        for part in name.split("."):
+            if not part.isdigit():
+                node = node[part]
+        out[name] = node
+    return out
+
+
+def distribute_model(model, api: ModelAPI, mesh, specs=None):
+    """Lay a whole-leaf model out over ``mesh`` (by ``specs``, the dry run's
+    FSDP or pure-DP layouts; by default the model's own): every parameter
+    becomes a DTensor parameter holding this rank's block of it (no
+    collective; every rank holds the same whole model first).  Returns the
+    model."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+
+    named = dict(model.named_parameters())
+    layout = param_layout(api, mesh, named, specs)
+    for name, p in named.items():
+        ns = layout[name]
+        local = p.detach()[ns.block(p.shape)].contiguous()
+        dt = DTensor.from_local(local, mesh, ns.placements, run_check=False,
+                                shape=p.shape, stride=p.detach().contiguous().stride())
+        owner = model.get_submodule(name.rpartition(".")[0]) if "." in name else model
+        setattr(owner, name.rpartition(".")[2], nn.Parameter(dt, requires_grad=p.requires_grad))
+    return model
+
+
+def dtensor_batch(batch: dict, mesh, data_axes=("pod", "data"), microbatched: bool = False):
+    """This rank's rows of each batch leaf (:func:`repro_torch.data.corpus.
+    shard_batch`'s) as DTensors over ``mesh``: the batch dim sharded over
+    the data-parallel axes, replicated over ``model``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import NamedSharding
+
+    axes = tuple(a for a in data_axes if a in mesh.mesh_dim_names) or None
+    out = {}
+    for k, v in batch.items():
+        d = _batch_dim(v[0] if microbatched else v) + int(microbatched)
+        spec = [None] * v.ndim
+        spec[d] = axes
+        out[k] = DTensor.from_local(v, mesh, NamedSharding(mesh, tuple(spec)).placements,
+                                    run_check=False)
+    return out
+
+
+def sharded_global_norm(grads: dict, placements: dict, mesh):
+    """The global norm of a tree whose leaves are this rank's shards: each
+    leaf's sum of squares is summed over the mesh dims that shard it (one
+    all-reduce per set of such dims), then over the leaves in sorted order."""
+    groups: dict = {}
+    for name in sorted(grads):
+        dims = tuple(i for i, p in enumerate(placements[name]) if p.is_shard())
+        sq = torch.sum(torch.square(grads[name].float()))
+        groups[dims] = sq if dims not in groups else groups[dims] + sq
+    total = None
+    for dims in sorted(groups):
+        sq = groups[dims]
+        for i in dims:
+            dist.all_reduce(sq, group=mesh.get_group(i))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def gathered_state(model, opt: dict | None = None) -> tuple[dict, dict | None]:
+    """The whole leaves of a tensor-parallel model's parameters, and of its
+    moments (this rank's shards, laid out as their parameters); a collective
+    every rank makes.  A model of whole leaves is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    named = {k: p.detach() for k, p in model.named_parameters()}
+    if not any(isinstance(p, DTensor) for p in named.values()):
+        return named, opt
+    params = {k: p.full_tensor() for k, p in named.items()}
+    if opt is None:
+        return params, None
+    return params, {"m": whole_leaves(model, opt["m"]), "v": whole_leaves(model, opt["v"]),
+                    "step": opt["step"]}
+
+
+def whole_leaves(model, shards: dict) -> dict:
+    """The whole tensors of this rank's ``shards`` of a tensor-parallel
+    model's leaves (moments, gradients), keyed and laid out as its
+    parameters; a collective every rank makes."""
+    from torch.distributed.tensor import DTensor
+
+    named = dict(model.named_parameters())
+    out = {}
+    for name, t in shards.items():
+        p = named[name]
+        out[name] = DTensor.from_local(t, p.device_mesh, p.placements, run_check=False,
+                                       shape=p.shape, stride=p.stride()).full_tensor()
+    return out
+
+
+def local_opt_state(model) -> dict:
+    """Zero moments of this rank's shards, and ``step`` 0."""
+    from repro_torch.train.optimizer import init_opt_state
+
+    return init_opt_state({k: p.to_local() for k, p in model.named_parameters()})
+
+
+def tp_replicas_agree(model, opt: dict, mesh) -> tuple[bool, str]:
+    """Whether the ranks that should hold the same bits do: each leaf's
+    block (parameter and moments) equal on every rank that holds the same
+    block of it (the same coordinate on the mesh dims that shard it), and
+    the step equal everywhere.  Returns the verdict and this rank's digest
+    of its blocks."""
+    coord = tuple(mesh.get_coordinate())
+    mine = {}
+    for name, p in model.named_parameters():
+        key = tuple(c for c, pl in zip(coord, p.placements) if pl.is_shard())
+        mine[name] = (key, replica_digest({"p": p.detach().to_local(), "m": opt["m"][name],
+                                           "v": opt["v"][name]}))
+    mine["step"] = ((), replica_digest({"step": opt["step"]}))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, mine)
+    ok = all(their[name][1] == digest for their in got
+             for name, (key, digest) in mine.items() if their[name][0] == key)
+    return ok, hashlib.sha256("".join(d for _, (_, d) in sorted(mine.items())).encode()
+                              ).hexdigest()
+
+
+def tensor_parallel_grads(api: ModelAPI, model, batch: dict, mesh, microbatches: int = 1):
+    """The loss and metrics (means over the microbatches, plain tensors), each
+    parameter's gradient (this rank's shard, f32, in its parameter's
+    layout: reduced over the data-parallel axes) and their global norm, of
+    a tensor-parallel model on a batch of DTensors (:func:`dtensor_batch`;
+    pre-split into ``microbatches``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.layers import use_mesh
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    names, params = zip(*model.named_parameters())
+    tokens = batch["tokens"]
+    mb0 = tokens[0] if microbatches > 1 else tokens
+    dp_ranks = int(np.prod([mesh_axes(mesh).get(a, 1) for a in ("pod", "data")]))
+    check_moe_groups(api.cfg, mb0.to_local().numel(), dp_ranks)
+    with use_mesh(mesh), implicit_replication():
+        acc, losses, metricses = None, [], []
+        for i in range(microbatches):
+            mb = {k: v[i] for k, v in batch.items()} if microbatches > 1 else batch
+            loss, metrics = api.loss(model, mb)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            if acc is None:
+                acc = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
+            acc = [a + g.float() / microbatches for a, g in zip(acc, grads)]
+            losses.append(whole(loss.detach()))
+            metricses.append({k: whole(v.detach()) for k, v in metrics.items()})
+        grads = {n: g.redistribute(mesh, p.placements).to_local()
+                 for n, p, g in zip(names, params, acc)}
+        values = {"loss": torch.stack(losses).mean()}
+        for k in metricses[0]:
+            values[k] = torch.stack([m[k] for m in metricses]).mean()
+        norm = sharded_global_norm(grads, {n: p.placements for n, p in zip(names, params)}, mesh)
+    return values, grads, norm
+
+
+def _tensor_parallel_step(api: ModelAPI, opt_cfg: OptConfig, microbatches: int, mesh):
+    """The train step over a tensor-parallel mesh (module docstring)."""
+
+    def train_step(model, opt_state, batch):
+        values, grads, norm = tensor_parallel_grads(api, model, batch, mesh, microbatches)
+        names = list(grads)
+        params = dict(model.named_parameters())
+        local = {n: params[n].detach().to_local() for n in names}
+        new, opt_state, opt_metrics = adamw_update(opt_cfg, local, grads, opt_state, norm=norm)
+        with torch.no_grad():
+            for n in names:
+                local[n].copy_(new[n])
+        return model, opt_state, {**values, **opt_metrics}
+
+    return train_step

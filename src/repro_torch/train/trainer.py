@@ -28,11 +28,19 @@ lays parameters out by ``shardings(specs, mesh)``, which on such a mesh
 drops the absent ``model`` axis; it also keeps the ``data`` entries of
 the MoE expert weights, which its compiler gathers back at each use.
 Here every leaf is whole on every rank (``Replicate()``): the same step
-in memory that fits a rank; sharding the state is item 17's FSDP, and a
-``model`` axis of more than one rank raises (tensor parallelism,
-``ROADMAP.md`` Queue 1 item 17).  After every step the ranks compare
+in memory that fits a rank.  After every step the ranks compare
 their parameters' :func:`~repro_torch.train.train_step.replica_digest`
-and raise if they differ.  Rank 0 writes the checkpoints, in the same
+and raise if they differ.
+
+**On a tensor-parallel mesh** (a ``model`` axis of more than one rank, as
+the reference's ``Trainer`` takes whatever mesh it is given) each
+parameter is laid out by the reference's specs
+(:func:`~repro_torch.train.train_step.distribute_model`), the moments are
+each rank's shards, the batch's rows are DTensors over the data-parallel
+axes, and after every step the ranks that must hold the same bits are
+compared (:func:`~repro_torch.train.train_step.tp_replicas_agree`).
+Checkpoints gather the whole leaves on every rank first
+(:func:`~repro_torch.train.train_step.gathered_state`).  Rank 0 writes the checkpoints, in the same
 layout as one device; ``restore_or_init`` re-places a checkpoint of any
 rank count under the current mesh (``Checkpointer.restore(mesh=,
 shardings=)``), which makes a restart elastic.
@@ -56,9 +64,15 @@ from repro_torch.models.registry import ModelAPI
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.train_step import (
     data_parallel_group,
+    distribute_model,
+    dtensor_batch,
+    gathered_state,
+    local_opt_state,
     make_train_step,
     replicas_agree,
     split_microbatches,
+    tensor_parallel,
+    tp_replicas_agree,
 )
 
 
@@ -77,8 +91,9 @@ class TrainerConfig:
 def checkpoint_state(model, opt: dict | None = None) -> dict:
     """The training state in the reference's checkpoint layout (``params``
     alone without ``opt``).  Leaves may share the live tensors' memory: the
-    Checkpointer copies them to the host when it saves."""
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    Checkpointer copies them to the host when it saves.  A tensor-parallel
+    model's leaves are gathered whole first (a collective of every rank)."""
+    params, opt = gathered_state(model, opt)
     if opt is None:
         return {"params": stacked_tree(params)}
     return {"params": stacked_tree(params),
@@ -86,15 +101,28 @@ def checkpoint_state(model, opt: dict | None = None) -> dict:
                     "step": opt["step"]}}
 
 
-def state_from_tree(api: ModelAPI, tree: dict, opt_tree: dict | None = None) -> dict:
+def state_from_tree(api: ModelAPI, tree: dict, opt_tree: dict | None = None,
+                    mesh=None) -> dict:
     """The trainable model of a reference-shaped parameter tree of tensors,
     and its optimizer state: ``opt_tree`` ({"m", "v", "step"}, stacked
-    trees) slice by slice, or zeros."""
+    trees) slice by slice, or zeros.  ``mesh`` (tensor-parallel): the model
+    laid out over it, and the moments this rank's blocks of theirs."""
     model = api.load(tree, trainable=True)
     params = dict(model.named_parameters())
+    tp = tensor_parallel(mesh)
+    if tp:
+        from repro_torch.train.train_step import param_layout
+
+        layout = param_layout(api, mesh, params)
+        model = distribute_model(model, api, mesh)
     if opt_tree is None:
-        return {"params": model, "opt": init_opt_state(params)}
-    opt = {name: {k: t.float().clone() for k, t in layer_slices(opt_tree[name], params).items()}
+        return {"params": model, "opt": local_opt_state(model) if tp else init_opt_state(params)}
+
+    def block(name, t):
+        return t[layout[name].block(t.shape)] if tp else t
+
+    opt = {name: {k: block(k, t).float().clone()
+                  for k, t in layer_slices(opt_tree[name], params).items()}
            for name in ("m", "v")}
     opt["step"] = opt_tree["step"].to(torch.int32)
     return {"params": model, "opt": opt}
@@ -104,6 +132,7 @@ class Trainer:
     def __init__(self, api: ModelAPI, data_cfg: CorpusConfig, opt_cfg: OptConfig,
                  cfg: TrainerConfig, mesh=None, device=None):
         self.mesh = mesh
+        self.tp = tensor_parallel(mesh)
         self.group = None
         if mesh is not None:
             self.group = data_parallel_group(mesh)
@@ -131,7 +160,7 @@ class Trainer:
         """The model drawn from ``cfg.seed`` (every leaf in f32), zero moments."""
         tree = init_params(in_f32(self.api.param_specs()), seed=self.cfg.seed,
                            device=self.device)
-        return state_from_tree(self.api, tree), 0
+        return state_from_tree(self.api, tree, mesh=self.mesh), 0
 
     def restore_or_init(self):
         if self.ckpt is not None:
@@ -147,8 +176,16 @@ class Trainer:
 
                     got = self.ckpt.restore(latest, templates, mesh=self.mesh, shardings={
                         "params": Replicate(), "opt": Replicate()})
-                return state_from_tree(self.api, got["params"], got["opt"]), latest
+                return state_from_tree(self.api, got["params"], got["opt"], self.mesh), latest
         return self.init_state()[0], 0
+
+    def _save(self, step: int, params, opt) -> None:
+        """Rank 0 writes the checkpoint; a tensor-parallel state is gathered
+        by every rank first."""
+        if self.writer or self.tp:
+            state = checkpoint_state(params, opt)
+            if self.writer:
+                self.ckpt.save(step, state)
 
     # -- loop ----------------------------------------------------------------
     def run(self) -> dict:
@@ -158,14 +195,22 @@ class Trainer:
         micro = self.cfg.microbatches
         t0 = time.perf_counter()
         step = start
+        saved = None
         for step in range(start, self.cfg.steps):
             batch = split_microbatches(self.data.batch(step), micro)
             if self.mesh is None:
                 batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
             else:
                 batch = shard_batch(batch, self.mesh, self.dp_axes, microbatched=micro > 1)
+                if self.tp:
+                    batch = dtensor_batch(batch, self.mesh, self.dp_axes, micro > 1)
             params, opt, metrics = self.step_fn(params, opt, batch)
-            if self.mesh is not None:
+            if self.tp:
+                agree, digest = tp_replicas_agree(params, opt, self.mesh)
+                if not agree:
+                    raise RuntimeError(f"the ranks' shards disagree after step {step + 1}")
+                digests.append((step + 1, digest))
+            elif self.mesh is not None:
                 agree, digest = replicas_agree(dict(params.named_parameters()), self.group)
                 if not agree:
                     raise RuntimeError(f"the replicas' parameters differ after step {step + 1}")
@@ -173,13 +218,15 @@ class Trainer:
             if (step + 1) % self.cfg.log_every == 0 or step == start:
                 losses.append((step + 1, float(metrics["loss"])))
             if self.ckpt and ((step + 1) % self.cfg.ckpt_every == 0 or self.preempted):
-                if self.writer:
-                    self.ckpt.save(step + 1, checkpoint_state(params, opt))
+                self._save(step + 1, params, opt)
+                saved = step + 1
                 if self.preempted:
                     self.ckpt.wait()
                     break
-        if self.ckpt and self.writer:
-            self.ckpt.save(self.cfg.steps, checkpoint_state(params, opt))
+        # the reference saves the last step once more; the same state under
+        # the same step is written once here (5.6 GB for Qwen1.5-0.5B)
+        if self.ckpt and saved != self.cfg.steps:
+            self._save(self.cfg.steps, params, opt)
         if self.ckpt:
             self.ckpt.wait()
         if self.mesh is not None:

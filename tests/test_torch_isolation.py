@@ -32,6 +32,7 @@ assert {{
     "repro_torch.data.dedup", "repro_torch.models.scan_utils", "repro_torch.train.optimizer",
     "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.train.compress",
     "repro_torch.launch.train", "repro_torch.launch.dryrun",
+    "repro_torch.launch.hlo_analysis", "repro_torch.launch.roofline",
 }} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -91,6 +92,8 @@ NEW_MODULES = [
     "src/repro_torch/train/compress.py",
     "src/repro_torch/launch/train.py",
     "src/repro_torch/launch/dryrun.py",
+    "src/repro_torch/launch/hlo_analysis.py",
+    "src/repro_torch/launch/roofline.py",
 ]
 
 
@@ -184,27 +187,49 @@ def test_wrappers_use_plain_version_only_for_cpu_tensors(name):
     assert wrapper.launches == before
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device with neither a kernel nor a plain
+    route (``xpu``) and holds no data: any operation on it raises."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor with no data")
+
+
 @pytest.mark.parametrize("name", KERNELS)
 def test_wrappers_raise_on_non_cuda_devices(name):
     """Off the CPU a wrapper launches its CUDA kernel or raises: a tensor on
-    another device never reaches the kernel and never takes the plain path."""
+    another device never reaches the kernel and never takes the plain path.
+    A ``meta`` tensor (shapes without data: the dry run's) takes the plain
+    version, explicitly, and launches nothing."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.icm_sweep import ops as icm
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.mln_score import ops as score
     from repro_torch.kernels.ngram_sim import ops as sim
 
-    t = lambda *s, dtype=torch.float32: torch.empty(s, device="meta", dtype=dtype)  # noqa: E731
-    wrapper, args = {
-        "icm_sweep": (icm.sweep_batched, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
-        "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5)),
-        "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
-        "minhash": (mh.minhash, (t(5, 16), t(8, 16, dtype=torch.int32))),
-        "flash_attn": (flash.attention, (t(2, 8, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16), 0.25)),
-    }[name]
+    def args_on(t):
+        return {
+            "icm_sweep": (icm.sweep_batched, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
+            "ngram_sim": (sim.sim_above, (t(1, 16), t(5, 16), 0.5)),
+            "mln_score": (score.score_sets, (t(2, 8), t(2, 8, 8), t(2, 3, 8))),
+            "minhash": (mh.minhash, (t(5, 16), t(8, 16, dtype=torch.int32))),
+            "flash_attn": (flash.attention,
+                           (t(2, 8, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16), 0.25)),
+        }[name]
+
+    wrapper, args = args_on(lambda *s, dtype=torch.float32: _Elsewhere(s, dtype))
     before = wrapper.launches
     with pytest.raises(ValueError, match="CUDA"):
         wrapper(*args)
+    wrapper, args = args_on(lambda *s, dtype=torch.float32: torch.empty(
+        s, device="meta", dtype=dtype))
+    out = wrapper(*args)
+    assert out.device.type == "meta"
     assert wrapper.launches == before
 
 
@@ -303,73 +328,3 @@ def test_training_needs_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         train.main(["--arch", "qwen1_5_0_5b", "--smoke", "--steps", "1"])
     t = Trainer(api, data, OptConfig(), TrainerConfig(steps=1), device="cpu")
     assert t.device.type == "cpu" and t.run()["steps_done"] == 1
-
-
-def _fake_world(n: int):
-    """Rank 0 of a ``fake`` process group of ``n`` ranks (no collective runs):
-    a mesh with a ``model`` axis lays out without devices."""
-    import contextlib
-
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    @contextlib.contextmanager
-    def world():
-        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
-
-    return world()
-
-
-def _item17_calls():
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from repro_torch.configs.base import smoke_config
-    from repro_torch.core import parallel
-    from repro_torch.data import corpus
-    from repro_torch.launch import dryrun
-    from repro_torch.models import layers
-    from repro_torch.models.registry import get_model
-    from repro_torch.train import optimizer, train_step, trainer
-
-    api = get_model(smoke_config("qwen1_5_0_5b"))
-
-    def tp_mesh():
-        return DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
-
-    calls = {
-        "Trainer(mesh with model > 1)": lambda: trainer.Trainer(
-            api, corpus.CorpusConfig(), optimizer.OptConfig(), trainer.TrainerConfig(),
-            mesh=tp_mesh(), device="cpu"),
-        "make_train_step(mesh with model > 1)": lambda: train_step.make_train_step(
-            api, optimizer.OptConfig(), mesh=tp_mesh()),
-    }
-    for name in ("ambient_mesh", "shard_spec", "shard_batch"):
-        calls[f"layers.{name}"] = getattr(layers, name)
-    for name in ("build_round_fn", "build_bin_round_fn"):
-        calls[f"parallel.{name}"] = getattr(parallel, name)
-    for name in ("lower_cell", "lower_em_cell", "analyze", "roofline_terms"):
-        calls[f"dryrun.{name}"] = getattr(dryrun, name)
-    return calls
-
-
-ITEM17 = [
-    "Trainer(mesh with model > 1)", "make_train_step(mesh with model > 1)",
-    "layers.ambient_mesh", "layers.shard_spec", "layers.shard_batch",
-    "parallel.build_round_fn", "parallel.build_bin_round_fn",
-    "dryrun.lower_cell", "dryrun.lower_em_cell", "dryrun.analyze", "dryrun.roofline_terms",
-]
-
-
-@pytest.mark.parametrize("name", ITEM17)
-def test_tensor_parallel_and_dry_run_pieces_raise(name):
-    """Tensor parallelism over the ``model`` axis, the activation pins, the
-    round functions of the multi-pod dry run, and the dry-run tooling wait for
-    ROADMAP.md Queue 1 item 17: each raises, naming the item."""
-    calls = _item17_calls()
-    assert sorted(calls) == sorted(ITEM17)
-    with _fake_world(2), pytest.raises(NotImplementedError, match="item 17"):
-        calls[name]()

@@ -271,13 +271,29 @@ def test_icm_sweep_plain_at_path_inputs(S):
     assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device with neither a kernel nor a plain route (``xpu``),
+    holding no data: any operation on it raises."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor with no data")
+
+
 @pytest.mark.parametrize("hd", [64, 128])
 def test_flash_attn_wgmma_route_raises_off_cuda(hd):
     """A bf16 call that would take the tensor-core kernel raises on a tensor
-    that is neither on the CPU nor on CUDA, and launches nothing."""
-    q, k, v = (torch.empty(s, device="meta", dtype=torch.bfloat16)
-               for s in [(1, 64, 8, hd), (1, 64, 2, hd), (1, 64, 2, hd)])
+    that is neither on the CPU nor on CUDA (nor ``meta``, the dry run's
+    shapes, which take the plain version), and launches nothing."""
+    shapes = [(1, 64, 8, hd), (1, 64, 2, hd), (1, 64, 2, hd)]
+    q, k, v = (_Elsewhere(s, torch.bfloat16) for s in shapes)
     before = (flash.attention.launches, flash.attention.wgmma_launches)
     with pytest.raises(ValueError, match="CUDA"):
         flash.attention(q, k, v, 0.125)
+    meta = [torch.empty(s, device="meta", dtype=torch.bfloat16) for s in shapes]
+    assert flash.attention(*meta, 0.125).device.type == "meta"
     assert (flash.attention.launches, flash.attention.wgmma_launches) == before

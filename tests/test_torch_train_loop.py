@@ -158,9 +158,9 @@ def test_microbatched_train_matches_single():
 
 
 def test_unported_train_options_raise():
-    """The compressed step needs a mesh with a ``pod`` axis; a mesh whose
-    ``model`` axis has more than one rank (tensor parallelism) raises in
-    the Trainer, naming ROADMAP.md Queue 1 item 17."""
+    """The compressed step needs a mesh with a ``pod`` axis, and is
+    data-parallel: a mesh whose ``model`` axis has more than one rank raises
+    there, while the Trainer takes such a mesh (tensor parallelism)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -168,12 +168,15 @@ def test_unported_train_options_raise():
     api = registry.get_model(base.smoke_config(ARCH))
     with pytest.raises(ValueError, match="pod"):
         train_step.make_train_step(api, optimizer.OptConfig(), compress_pods=True)
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
     try:
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "model"))
+        with pytest.raises(ValueError, match="model axis"):
+            train_step.make_train_step(api, optimizer.OptConfig(), compress_pods=True, mesh=mesh)
         mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
-        with pytest.raises(NotImplementedError, match="item 17"):
-            Trainer(api, CorpusConfig(), optimizer.OptConfig(), TrainerConfig(), mesh=mesh,
+        t = Trainer(api, CorpusConfig(), optimizer.OptConfig(), TrainerConfig(), mesh=mesh,
                     device="cpu")
+        assert t.tp
     finally:
         dist.destroy_process_group()
 

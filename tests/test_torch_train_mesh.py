@@ -688,17 +688,20 @@ def test_check_moe_groups(arch, local, ranks, ok):
 
 def test_model_axis_raises_naming_item_17():
     """A mesh whose ``model`` axis has more than one rank is tensor
-    parallelism: the Trainer and the step raise, naming item 17."""
+    parallelism, now ported: the Trainer and the step take it, and the
+    data-parallel compressed step refuses it."""
     from torch.distributed.device_mesh import DeviceMesh
 
     cfg = base.smoke_config(ARCHS["dense"])
     api = get_model(cfg)
     with _FakeWorld(0, 4):
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
-        with pytest.raises(NotImplementedError, match="item 17"):
-            Trainer(api, CorpusConfig(vocab_size=cfg.vocab_size), OPT, TrainerConfig(),
-                    mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 17"):
-            train_step.make_train_step(api, OPT, mesh=mesh)
+        assert Trainer(api, CorpusConfig(vocab_size=cfg.vocab_size), OPT, TrainerConfig(),
+                       mesh=mesh, device="cpu").tp
+        assert train_step.tensor_parallel(mesh)
+        assert callable(train_step.make_train_step(api, OPT, mesh=mesh))
+        pods = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "model"))
+        with pytest.raises(ValueError, match="model axis"):
+            train_step.make_train_step(api, OPT, compress_pods=True, mesh=pods)
     with pytest.raises(ValueError, match="pod"):
         train_step.make_train_step(api, OPT, compress_pods=True)
