@@ -8,7 +8,8 @@
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with its time, the plain version's,
    a library call's where one computes the same function, and the bound
-   from bytes and operations.
+   from bytes and operations; ``flash_attn``'s backward at every shape a
+   training path launches (``FLASH_GRAD_SHAPES``, ``flash_grad_row``).
 3. Pipeline: ``repro_torch.core.pipeline.resolve`` for nomp, smp and mmp on
    the HEPTH-like corpus ``SynthConfig.hepth(scale=1.0, seed=7)`` on CUDA,
    then the MMP fixpoint scored with ``MLNMatcher.score``.  The kernels'
@@ -148,46 +149,52 @@
    tokens and a request's decode-step logits, each within 2e-2; served at 24
    + 24 layers: ``encode``, ``build_cross_cache``, a 4-token prompt as decode
    steps and 8 greedy tokens, ``flash_attn`` launched 24 times, non-causal.
-13. Train (``train``): ``flash_attn`` under autograd first: at Qwen1.5-0.5B's
-   training shape, Yi-6B's heads, Whisper's cross attention and MiniCPM3's
-   MLA (through ``layers.attend``'s padding), the kernel inside the autograd
-   Function ``FlashAttention``, whose dq, dk and dv (its blocked backward)
-   must be within 2e-3 of autograd of ``attention_plain`` (max |d| / max
-   |ref|), with the forward kernel, the blocked backward and SDPA's forward
-   and backward timed.  Then Qwen1.5-0.5B at full width and 2 layers on the
+13. Train (``train``): Qwen1.5-0.5B at full width and 2 layers on the
    card against the CPU from one seed-0 draw: loss and every gradient within
-   2e-2, every attention projection's gradient nonzero.  Then
+   2e-2, every attention projection's gradient nonzero, ``flash_attn``
+   launched 4 times and its backward twice.  Then
    Qwen1.5-0.5B at full width and depth (24 layers) through
    ``repro_torch.train.trainer.Trainer``: batch 8 x 2,048 in 2 microbatches,
-   ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``, 8 steps with
-   a checkpoint at step 4, then a restart from that checkpoint to step 8:
+   ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``, 6 steps with
+   a checkpoint at step 4, then a restart from that checkpoint to step 6:
    the restarted losses within 1e-5 relative of the uninterrupted ones, the
    last loss below the first, and ``flash_attn`` launched 24 x 2 x 2 = 96
-   times a step (forward and remat recompute).  The counters are set to 0
+   times a step (forward and remat recompute) and its backward kernel 48
+   times (one a differentiated forward; every training run below is held
+   to the same counts, ``_require_launches``).  The counters are set to 0
    before the Trainer runs and read after them.  Prints each step's loss,
    ms, tokens/s, peak memory and launches (the steps are timed without the
    profiler), then the device's busy share of one more step under
    ``torch.profiler``, and a microbatch's forward, backward and AdamW
    times.  Last
    ``python -m repro_torch.launch.train --arch qwen1_5_0_5b --steps 2
-   --batch 8 --seq 2048 --microbatches 2`` as a subprocess, which must exit 0.
-14. Train mesh (``train_mesh``): training over ranks, this script again as
-   2 ranks (``--train-mesh-worker``) on one group sharing the card (gloo),
-   with phase train's model and settings.  (a) ``Trainer`` on a
-   ``("data",)`` ``DeviceMesh`` for 4 steps, a checkpoint at step 2: the
-   losses within ``MESH_LOSS_TOL`` of phase train's (``MESH_STEP1_TOL`` at
-   step 1), every rank's parameters, moments and step equal after every
-   step, ``flash_attn`` 96 times a rank a step.  (b) Elastic restores:
-   phase train's step-4 checkpoint on the 2 ranks (their state equal to the
-   state phase train saved) and step 5; the ranks' step-2 checkpoint in
+   --batch 8 --seq 2048 --microbatches 2``, run in this process as ``-m``
+   runs the module (``run_train_launcher``): it must launch ``flash_attn``
+   96 times a step on the tensor cores and its backward 48 times, with no
+   call of the plain backward.
+14. Train mesh (``train_mesh``): training over ranks with phase train's
+   model and settings cut to ``MESH_LAYERS`` = 2 of 24 layers (full width).
+   First the one-process run: that model on this process, 5 steps (its
+   checkpoint at step 4 kept).  Then this script again as 2 ranks
+   (``--train-mesh-worker``) on one group sharing the card (gloo).  (a)
+   ``Trainer`` on a ``("data",)`` ``DeviceMesh`` for 4 steps, a checkpoint
+   at step 2: the losses within ``MESH_LOSS_TOL`` of the one-process run's
+   (``MESH_STEP1_TOL`` at step 1), every rank's parameters, moments and
+   step equal after every step, ``flash_attn`` 8 times and its backward 4
+   times a rank a step.  (b) Elastic restores: the one-process run's step-4
+   checkpoint on the 2 ranks (their state equal to the state that run
+   saved) and step 5; the ranks' step-2 checkpoint in
    this process on one card (equal to the state the ranks saved) and
    steps 3-4; the losses within the same limit.  (c) 3 steps of
    ``make_train_step(compress_pods=True)`` over a ``("pod",)`` mesh of the
    2 ranks: step 1's loss within 1e-6 of (a)'s, the replicas equal, the
    error feedback nonzero.  (d) ``compressed_psum`` of 2^20 seeded f32
    elements a rank, bit for bit against the formula in numpy.  (e)
-   ``python -m repro_torch.launch.train --smoke`` as 2 ranks: exit 0,
-   ``devices=2`` and the same losses on both.  Each rank sets its counters
+   ``python -m repro_torch.launch.train --smoke --steps 3`` in each rank on
+   its group, last (``run_train_launcher``): ``devices=2`` and the same
+   losses on both, and on each rank ``flash_attn`` 4 times and its backward 2 times a
+   step on the FMA route (the smoke config is bf16 at hd 16, a phase-2
+   row), with no call of the plain backward.  Each rank sets its counters
    to 0 before a run and reads them after.  Prints each rank's step walls,
    collective ms and bytes a step, peak memory, and its busy share of one
    more step under ``torch.profiler``.
@@ -195,23 +202,25 @@
    ranks (``--train-tp-worker``) sharing the card (gloo; the functional
    all-gathers DTensor issues are composed from gloo's c10d all-gather,
    ``launch/mesh.py`` ``compose_gloo_cuda_collectives``),
-   with phase train's model
+   with phase train_mesh's model (2 layers)
    and settings over a ``(data, model)`` mesh of (1, 2): 8 of 16 heads and
    75,968 of 151,936 vocabulary rows a rank, every parameter a DTensor
    laid out by the reference's specs.  (a) ``Trainer`` for 4 steps, a
    checkpoint at step 2 (whole leaves, the reference's layout): the losses
-   within ``MESH_LOSS_TOL`` of phase train's (``MESH_STEP1_TOL`` at step
-   1), the blocks that ranks share equal after every step, ``flash_attn``
-   96 times a rank a step; step 4 runs under ``torch.profiler`` for the
-   busy share.  (b) That checkpoint restored onto a (2, 1) data-parallel
-   mesh of the same ranks and, in this process, onto one card: each state
+   within ``MESH_LOSS_TOL`` of phase train_mesh's one-process run
+   (``MESH_STEP1_TOL`` at step 1), the blocks that ranks share equal after
+   every step, ``flash_attn`` 8 times and its backward 4 times a rank a
+   step; step 4 runs under ``torch.profiler`` for the busy share.  (b)
+   That checkpoint restored onto a (2, 1) data-parallel mesh of the same
+   ranks and, in this process, onto one card: each state
    equal to the checkpoint's bit for bit, and step 3 within
    ``MESH_LOSS_TOL`` of the tensor-parallel one.  Prints each rank's step
    ms, peak memory and busy share, and for steps 1 and 2 (``TP_COUNTED``,
    run inside ``OpCounter``, each collective synchronized) the collective
-   ms, calls and bytes by kind; steps 3 and 4 run uncounted.
+   ms, calls and bytes by kind; step 3 runs as a user's would, uncounted
+   and unprofiled.
 16. Dry run (``dryrun``), in a process of its own on this machine's CPU,
-   started before phase ``train`` and read after ``train_tp``:
+   started before phase ``lm`` and read after ``train_tp``:
    ``launch.dryrun.lower_cell`` for ``DRYRUN_CELLS`` and
    ``lower_em_cell`` on the (16, 16) and (2, 16, 16)
    meshes of a ``fake`` process group; each record's parameters, active
@@ -220,8 +229,12 @@
    constants (``launch.roofline``).
 17. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-18. The card's name and power limit, the kernel list as one JSON line, and
-   last the line ``{"ok": true, "device": {...}}``.
+18. The card's name and power limit, the kernel list as one JSON line
+   (``flash_attn``'s entry with its backward's launches by path and phase
+   2's backward times), and last the line ``{"ok": true, "device": {...}}``.
+   Each phase's seconds are printed on a line of its own (``[phase]``), and
+   ``attention_backward_blocked``, the plain backward, may run only in
+   phase 2: the script and each training rank count its calls.
 
 Any failure raises and exits non-zero before the last line.  Imports
 nothing of JAX or of the JAX package ``repro``.
@@ -417,9 +430,12 @@ KERNELS = {
     ),
     "flash_attn": dict(
         # the tensor-core kernel carries the serving path (bf16, hd 64/128);
-        # flash_attn.cu takes f32 inputs and hd 8/16/32
+        # flash_attn.cu takes f32 inputs and hd 8/16/32; the two backward
+        # kernels, the same routes, carry the training paths
         source="src/repro_torch/csrc/flash_attn_sm90.cu",
-        sources=["src/repro_torch/csrc/flash_attn_sm90.cu", "src/repro_torch/csrc/flash_attn.cu"],
+        sources=["src/repro_torch/csrc/flash_attn_sm90.cu", "src/repro_torch/csrc/flash_attn.cu",
+                 "src/repro_torch/csrc/flash_attn_bwd_sm90.cu",
+                 "src/repro_torch/csrc/flash_attn_bwd.cu"],
         replaces="src/repro/kernels/flash_attn/kernel.py:108",
     ),
 }
@@ -438,15 +454,27 @@ def _wrappers() -> dict:
             "flash_attn": flash.attention}
 
 
+# the counts each path's run reads: every kernel's launches, and the
+# flash_attn backward's (one a call of attention_backward)
+COUNTS = (*KERNELS, "flash_attn_backward")
+
+
 def _zero_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
     _wrappers()["flash_attn"].wgmma_launches = 0
+    _wrappers()["flash_attn"].backward_launches = 0
     _wrappers()["icm_sweep"].rows = 0
 
 
 def _read_counts() -> dict:
-    return {name: w.launches for name, w in _wrappers().items()}
+    counts = {name: w.launches for name, w in _wrappers().items()}
+    counts["flash_attn_backward"] = _wrappers()["flash_attn"].backward_launches
+    return counts
+
+
+def _no_counts() -> dict:
+    return dict.fromkeys(COUNTS, 0)
 
 
 def _count_into(total: dict, lc: dict) -> None:
@@ -784,6 +812,20 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         )
         require((flash.attention.wgmma_launches > before) == (route == "wgmma"),
                 f"flash_attn at hd={hd}, {dtype} did not take the {route} route")
+
+    # the backward at every shape a training path launches, and the FMA route's
+    for shape in FLASH_GRAD_SHAPES if wanted("flash_attn") else []:
+        r = flash_grad_row(dev, *shape)
+        log(f"[kernels] flash_attn backward {r['shape']} ok  vs autograd of attention_plain "
+            + ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items()) + "; vs the blocked "
+            + ", ".join(f"{k} {v:.3g}" for k, v in r["errs_blocked"].items())
+            + f" (limit {FLASH_GRAD_TOL}); lse max |d| {r['lse_err']:.3g}; two calls equal"
+            f"  kernel_ms={r['ms']:.4f} (eager call {r['call_ms']:.4f})"
+            f"  blocked_ms={r['plain_ms']:.4f} (eager)  sdpa_backward_ms={r['library_ms']:.4f}"
+            f" (eager)  bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+            + (f"  unpadded_bound_ms={r['unpadded_bound_ms']:.5f}"
+               if "unpadded_bound_ms" in r else ""))
+        rows.append(r)
     return rows
 
 
@@ -971,7 +1013,7 @@ def phase_stream(dev, resolved) -> dict:
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     schedules = stream_schedules(ds)
     require(len(schedules[29]) == 29, f"{len(schedules[29])} batches, expected 29")
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     for (scheme, n_batches), want in EXPECTED_STREAM.items():
         run = stream_run(dev, scheme, schedules[n_batches])
         got = {k: run[k] for k in want}
@@ -1012,7 +1054,7 @@ def phase_rules(dev, resolved) -> dict:
 
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     icm_runs = {}
     for scheme, want in EXPECTED_RULES.items():
         _zero_counts()
@@ -1047,11 +1089,24 @@ def phase_rules(dev, resolved) -> dict:
     return total, icm_runs
 
 
+def _device_events(prof) -> list[tuple[str, float]]:
+    """The device's events of a finished ``torch.profiler`` run as (name,
+    microseconds): the kernels, copies and sets that ``prof.events()`` lists
+    for the device, read from the raw trace, without the host-side event
+    tree that ``prof.events()`` builds first (seconds for a long trace)."""
+    from torch.autograd import DeviceType
+
+    skip = ("[memory]", "[OutOfMemory]")
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and e.name() not in skip
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def _profile_run(dev, run) -> dict:
     """``run()`` under torch.profiler, device activity only: the wall, the
     device's busy seconds (summed kernel and copy time), the device ops,
-    the device-to-host copies, and the device events themselves."""
-    from torch.autograd import DeviceType
+    the device-to-host copies, and the device events as (name, us)."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync(dev)
@@ -1060,9 +1115,9 @@ def _profile_run(dev, run) -> dict:
         run()
         _sync(dev)
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return dict(wall=wall, busy=sum(e.time_range.elapsed_us() for e in events) / 1e6,
-                ops=len(events), d2h=sum("DtoH" in e.name for e in events), events=events)
+    events = _device_events(prof)
+    return dict(wall=wall, busy=sum(us for _, us in events) / 1e6, ops=len(events),
+                d2h=sum("DtoH" in name for name, _ in events), events=events)
 
 
 def parallel_run(dev, packed, gg, kind: str, scheme: str, fused: bool, truth) -> dict:
@@ -1104,7 +1159,7 @@ def phase_parallel(dev, resolved, seq_icm: dict, rules_icm: dict) -> dict:
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     truth = ds.entities.truth
     packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     count = functools.partial(_count_into, total)
     for (kind, scheme, fused), want in EXPECTED_PARALLEL.items():
         tag = f"{kind} {scheme} {'fused' if fused else 'legacy'}"
@@ -1339,7 +1394,7 @@ def phase_matchers(dev, resolved) -> dict:
     from repro_torch.data.synthetic import SynthConfig, make_dataset
 
     t0 = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     matcher_families(dev, total)
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     packed, gg = resolved["mmp"].packed, resolved["mmp"].gg
@@ -1461,7 +1516,7 @@ def phase_serving(dev) -> dict:
     from repro_torch.stream.wal import WriteAheadLog
 
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     ds = make_dataset(SynthConfig.hepth(scale=1.0, seed=7))
     batches = arrival_stream(ds, batch_size=64)
     want = EXPECTED_STREAM_PARALLEL["mmp"]
@@ -1679,7 +1734,7 @@ def phase_shard(dev) -> dict:
     from repro_torch.stream.digest import match_digest
 
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         tmp = Path(tmp)
@@ -1800,8 +1855,6 @@ def engine_probe(dev):
 
 def _device_busy(dev, run) -> str:
     """Device busy share of ``run()`` under torch.profiler (kernels and copies)."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if dev.type != "cuda":
@@ -1812,8 +1865,7 @@ def _device_busy(dev, run) -> str:
         run()
         _sync(dev)
         wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e6
+    busy = sum(us for _, us in _device_events(prof)) / 1e6
     if busy == 0:
         return "not measured (the profiler saw no device activity)"
     return f"{busy:.3f} s of {wall:.3f} s ({100 * busy / wall:.1f}%)"
@@ -2657,8 +2709,9 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     from repro_torch.configs.base import get_config
 
     t_phase = time.perf_counter()
-    total = {name: 0 for name in KERNELS}
+    total = _no_counts()
     for arch, cmp_layers, serve_layers in LM_FAMILIES:
+        t_arch = time.perf_counter()
         _free(dev)
         full = get_config(arch)
         draw, deeper = _deepest_draw(arch, serve_layers)
@@ -2724,27 +2777,40 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
                 f"tokens/s), decode {ldec:.2f} ms a token")
         _count_into(total, launches)
         del res
+        _free(dev)
+        log(f"[lm_families] {full.name}: {time.perf_counter() - t_arch:.1f} s in all")
     for arch, cmp_layers, serve_layers in LM_DECODE_ONLY:
+        t_arch = time.perf_counter()
         _free(dev)
         _count_into(total, decode_only_family(dev, arch, cmp_layers, serve_layers, max_new))
-    _free(dev)
+        _free(dev)
+        log(f"[lm_families] {arch}: {time.perf_counter() - t_arch:.1f} s in all")
     log(f"[lm_families] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return total
 
 
 # the train phase: Qwen1.5-0.5B (hf:Qwen/Qwen1.5-0.5B) at full width and depth
 TRAIN_ARCH = "qwen1_5_0_5b"
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4, 8, 2048, 2
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 6, 4, 8, 2048, 2
 TRAIN_RESTART_TOL = 1e-5  # relative: the embedding backward's atomics (index_add_)
-# the autograd Function's dq, dk, dv against autograd of attention_plain:
-# (label, B, S, T, H, Hkv, hd, causal, MLA (q.k dim, v dim) padded to hd)
+# flash_attn's backward in phase 2, at every shape a training path launches
+# (phase train_mesh's launcher ranks run Qwen1.5-0.5B's smoke config: bf16 at
+# hd 16, the FMA route) and the FMA route's: (label, B, S, T, H, Hkv, hd,
+# dtype, causal, MLA (q.k dim, v dim) padded to hd)
 FLASH_GRAD_SHAPES = [
-    ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, True, None),
-    ("Yi-6B", 1, 2048, 2048, 32, 4, 128, True, None),
-    ("Whisper cross", 4, 32, 1500, 16, 16, 64, False, None),
-    ("MiniCPM3 MLA", 1, 4096, 4096, 40, 40, 128, True, (96, 64)),
+    ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, "bf16", True, None),
+    ("Yi-6B", 1, 2048, 2048, 32, 4, 128, "bf16", True, None),
+    ("Whisper cross", 4, 32, 1500, 16, 16, 64, "bf16", False, None),
+    ("MiniCPM3 MLA", 1, 4096, 4096, 40, 40, 128, "bf16", True, (96, 64)),
+    ("train card vs CPU", 2, 256, 256, 16, 16, 64, "bf16", True, None),
+    ("train_tp", 4, 2048, 2048, 8, 8, 64, "bf16", True, None),
+    ("launcher smoke", 4, 256, 256, 4, 4, 16, "bf16", True, None),
+    ("fma GQA", 2, 128, 128, 4, 2, 32, "f32", True, None),
+    ("fma full", 2, 256, 256, 2, 2, 64, "f32", False, None),
+    ("fma ragged S < T", 2, 40, 100, 4, 2, 8, "f32", True, None),
+    ("fma bf16 hd 8", 8, 32, 32, 4, 4, 8, "bf16", True, None),
 ]
-FLASH_GRAD_TOL = 2e-3  # max |d| / max |ref|, the kernel's contract
+FLASH_GRAD_TOL = 2e-3  # max |d| / max |ref|, and lse's max |d|: the kernel's contract
 
 
 def eager_ms(fn, iters: int = 5) -> float:
@@ -2764,98 +2830,144 @@ def _rel(got, want) -> float:
     return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
 
-def flash_grad_check(dev, label, B, S, T, H, hkv, hd, causal, mla) -> dict:
-    """``flash.attention`` under autograd on the card (the kernel inside
-    ``FlashAttention``) against autograd of ``attention_plain`` on the same
-    bf16 inputs (through ``layers.attend``'s padding for MLA).  The Function's
-    bf16 gradients must equal its blocked backward in f32 rounded to bf16,
-    and those f32 gradients the plain version's within ``FLASH_GRAD_TOL``.
-    Then the forward kernel, the blocked backward, and SDPA's forward and
-    backward are timed on the same input."""
+def _count_blocked() -> None:
+    """Count the calls of ``attention_backward_blocked``, the plain version of
+    the attention gradient, in this process (``attention_backward_blocked.calls``):
+    outside phase 2's comparisons no path may run it."""
+    from repro_torch.kernels.flash_attn import ops as flash
+
+    plain = flash.attention_backward_blocked
+    if hasattr(plain, "calls"):
+        return
+
+    @functools.wraps(plain)
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return plain(*args, **kwargs)
+
+    counted.calls = 0
+    flash.attention_backward_blocked = counted
+
+
+def _blocked_calls() -> int:
+    from repro_torch.kernels.flash_attn import ops as flash
+
+    return flash.attention_backward_blocked.calls
+
+
+def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
+    """``flash_attn``'s backward kernel at one shape against its plain
+    versions on the card.  On the inputs the kernel takes (MLA: q, k, v
+    zero-padded to hd as ``layers.attend`` pads them): the forward's ``lse``
+    against ``attention_lse_plain`` (max |d| within ``FLASH_GRAD_TOL``); two
+    calls of ``attention_backward`` equal bit for bit; its f32 dq, dk, dv
+    within ``FLASH_GRAD_TOL`` (max |d| / max |ref|) of autograd of
+    ``attention_plain`` on f32 copies of the unpadded inputs and of
+    ``attention_backward_blocked``; and the autograd Function's gradients
+    (through ``layers.attend`` for MLA) equal the kernel's cast to the
+    inputs' dtype.  Then the kernel, the blocked backward and SDPA's
+    backward are timed on the same input, beside the bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.models import layers
 
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     rng = np.random.default_rng(5)
     hq, hv = mla or (hd, hd)
     q, k, v = (torch.as_tensor(rng.standard_normal((B, n, h, d)).astype(np.float32),
-                               device=dev).to(torch.bfloat16).requires_grad_()
+                               device=dev).to(dt)
                for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
     do = torch.as_tensor(rng.standard_normal((B, S, H * hv)).astype(np.float32), device=dev)
     scale = 1.0 / np.sqrt(hq)
+    qp, kp, vp = (F.pad(t, (0, hd - t.shape[-1])).contiguous() for t in (q, k, v))
+    dop = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).reshape(B, S, H * hd).contiguous()
 
-    def through(attn, q, k, v):
-        if mla is None:
-            return attn(q, k, v, scale, causal=causal)
-        pad = [F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v)]
-        o = attn(*pad, scale, causal=causal)
-        return o.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv)
+    # the forward's row statistics and the kernel's f32 gradients, twice
+    o, lse = flash.attention_forward(qp, kp, vp, scale, causal=causal)
+    lse_err = float((lse.double() - flash.attention_lse_plain(
+        qp, kp, vp, scale, causal=causal).double()).abs().max())
+    require(lse_err <= FLASH_GRAD_TOL, f"{label}: lse differs from the plain version's by "
+            f"{lse_err:.3g} > {FLASH_GRAD_TOL}")
+    before = flash.attention.backward_launches
+    got = flash.attention_backward(qp, kp, vp, o, lse, dop, scale, causal)
+    again = flash.attention_backward(qp, kp, vp, o, lse, dop, scale, causal)
+    require(flash.attention.backward_launches == before + 2,
+            f"{label}: the backward kernel did not launch")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{label}: two backward calls on one input differ")
+    got = [g[..., :t.shape[-1]] for g, t in zip(got, (q, k, v))]
 
-    before = flash.attention.launches
-    if mla is None:
-        o = flash.attention(q, k, v, scale, causal=causal)
-    else:
-        o = layers.attend(q, k, v, scale, torch.float32, causal=causal)
-    require(flash.attention.launches == before + 1 and o.grad_fn is not None,
-            f"{label}: flash_attn did not launch inside the autograd Function")
-    got = torch.autograd.grad(o, (q, k, v), do)
-    # the Function's backward in f32 (before its cast to bf16), and the plain
-    # version's autograd, on f32 copies of the same inputs (MLA: padded as attend pads)
-    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
-    pq, pk, pv = (F.pad(t.detach(), (0, hd - t.shape[-1])) for t in (q32, k32, v32))
-    with torch.no_grad():
-        o_pad = flash.attention(*(t.to(torch.bfloat16) for t in (pq, pk, pv)), scale,
-                                causal=causal)
-    do_pad = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).reshape(B, S, H * hd)
-    f32 = flash.attention_backward_blocked(pq, pk, pv, o_pad, do_pad, scale, causal)
-    f32 = [g[..., :t.shape[-1]] for g, t in zip(f32, (q, k, v))]
-    want = torch.autograd.grad(through(flash.attention_plain, q32, k32, v32),
+    # the plain versions: autograd of attention_plain on f32 copies of the
+    # unpadded inputs, and the blocked backward on the padded ones
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    op = flash.attention_plain(*(F.pad(t, (0, hd - t.shape[-1])) for t in (q32, k32, v32)),
+                               scale, causal=causal)
+    want = torch.autograd.grad(op.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv),
                                (q32, k32, v32), do)
-    errs = {}
-    for name, g, g32, w in zip("qkv", got, f32, want):
-        require(g.dtype == torch.bfloat16 and torch.equal(g, g32.to(torch.bfloat16)),
-                f"{label}: d{name} is not the blocked backward's f32 gradient in bf16")
-        errs[f"d{name}"] = _rel(g32, w)
-        require(errs[f"d{name}"] <= FLASH_GRAD_TOL,
-                f"{label}: d{name} differs from the plain version's by {errs[f'd{name}']:.3g}"
-                f" > {FLASH_GRAD_TOL}")
-    del got, f32, want, q32, k32, v32
+    blocked = flash.attention_backward_blocked(qp.float(), kp.float(), vp.float(), o, dop,
+                                               scale, causal)
+    blocked = [g[..., :t.shape[-1]] for g, t in zip(blocked, (q, k, v))]
+    errs, errs_blocked = {}, {}
+    for name, g, w, bl in zip("qkv", got, want, blocked):
+        errs[f"d{name}"], errs_blocked[f"d{name}"] = _rel(g, w), _rel(g, bl)
+        require(max(errs[f"d{name}"], errs_blocked[f"d{name}"]) <= FLASH_GRAD_TOL,
+                f"{label}: d{name} differs from the plain version's by {errs[f'd{name}']:.3g}, "
+                f"from the blocked backward's by {errs_blocked[f'd{name}']:.3g} "
+                f"(limit {FLASH_GRAD_TOL})")
+    max_abs = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    del want, blocked, q32, k32, v32, op
+
+    # the autograd Function on the same inputs gives the kernel's gradients in dt
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    launches = flash.attention.launches
+    if mla is None:
+        out = flash.attention(qg, kg, vg, scale, causal=causal)
+    else:
+        out = layers.attend(qg, kg, vg, scale, torch.float32, causal=causal)
+    require(flash.attention.launches == launches + 1 and out.grad_fn is not None,
+            f"{label}: flash_attn did not launch inside the autograd Function")
+    fn_grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    require(flash.attention.backward_launches == before + 3,
+            f"{label}: the Function's backward did not launch the kernel")
+    require(all(a.dtype == dt and torch.equal(a, g.to(dt)) for a, g in zip(fn_grads, got)),
+            f"{label}: the Function's gradients are not the kernel's in {dtype}")
+    del out, fn_grads, qg, kg, vg, got, again
     _free(dev)
 
-    # timing on the padded bf16 input the kernel takes (MLA: q, k, v at hd)
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (pq, pk, pv))
-    ob, dob = o_pad, do_pad
-    st = [t.transpose(1, 2).detach().requires_grad_() for t in (qb, kb, vb)]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(*st, is_causal=causal, scale=scale,
-                                              enable_gqa=True)
-
-    so = sdpa()
-    sdo = dob.reshape(B, S, H, hd).transpose(1, 2).to(torch.bfloat16)
-    with torch.no_grad():
-        kernel_ms = eager_ms(lambda: flash.attention(qb, kb, vb, scale, causal=causal))
-    backward_ms = eager_ms(lambda: flash.attention_backward_blocked(
-        qb, kb, vb, ob, dob, scale, causal))
-    with torch.no_grad():
-        sdpa_ms = eager_ms(sdpa)
-    sdpa_bwd_ms = eager_ms(lambda: torch.autograd.grad(so, st, sdo, retain_graph=True))
+    # times on the input the kernel takes
+    st = [t.transpose(1, 2).detach().requires_grad_() for t in (qp, kp, vp)]
+    so = F.scaled_dot_product_attention(*st, is_causal=causal, scale=scale, enable_gqa=True)
+    sdo = dop.reshape(B, S, H, hd).transpose(1, 2).to(dt)
+    iters = 10 if S * T > 1 << 20 else 50
+    ms, call_ms = time_ms(lambda: flash.attention_backward(qp, kp, vp, o, lse, dop, scale,
+                                                           causal), iters)
+    blocked_ms = eager_ms(lambda: flash.attention_backward_blocked(
+        qp.float(), kp.float(), vp.float(), o, dop, scale, causal))
+    sdpa_ms = eager_ms(lambda: torch.autograd.grad(so, st, sdo, retain_graph=True))
     pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
-    esize = 2
+    esize = qp.element_size()
     io = esize * (B * S * H * hd + 2 * B * T * hkv * hd)
-    fwd_bound = bound(io + 4 * B * S * H * hd, 4 * B * H * hd * pairs, PEAK_BF16_FLOPS)
-    # backward: reads q, k, v (bf16), o and dO (f32); writes dq, dk, dv (bf16);
-    # five products of 2 * hd flops a (row, col) pair: scores, dV, dP, dQ, dK
-    bwd_bytes = io + 2 * 4 * B * S * H * hd + io
-    bwd_bound = bound(bwd_bytes, 10 * B * H * hd * pairs, PEAK_BF16_FLOPS)
-    bwd_bound_f32 = bound(bwd_bytes, 10 * B * H * hd * pairs, PEAK_F32_FLOPS)
-    del q, k, v, qb, kb, vb, ob, st, so
+    # reads q, k, v, o and dO; writes dq, dk, dv; five products of 2 hd
+    # flops a (row, col) pair: scores, dV, dP, dQ, dK
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    bound_ms, bound_by = bound(io + 2 * 4 * B * S * H * hd + io, 10 * B * H * hd * pairs, peak)
+    unpadded = {}
+    if mla is not None:  # the same work before padding: scores, dQ, dK over hq; dV, dP over hv
+        io_u = esize * (B * S * H * hq + B * T * hkv * (hq + hv))
+        unpadded["unpadded_bound_ms"] = bound(io_u + 2 * 4 * B * S * H * hv + io_u,
+                                              2 * B * H * pairs * (3 * hq + 2 * hv), peak)[0]
+    del q, k, v, qp, kp, vp, o, lse, do, dop, st, so, sdo
     _free(dev)
-    return dict(label=label, errs=errs, kernel_ms=kernel_ms, backward_ms=backward_ms,
-                sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms, fwd_bound=fwd_bound,
-                bwd_bound=bwd_bound, bwd_bound_f32=bwd_bound_f32)
+    return dict(
+        name="flash_attn_backward",
+        shape=f"{label}: B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{dtype},"
+        + ("causal" if causal else "full") + f",{flash.route(dt, hd)}"
+        + ("" if mla is None else f",MLA {mla[0]}/{mla[1]} padded"),
+        errs=errs, errs_blocked=errs_blocked, lse_err=lse_err, max_abs_err=max_abs,
+        ms=ms, call_ms=call_ms, plain_ms=blocked_ms, library_ms=sdpa_ms,
+        bound_ms=bound_ms, bound_by=bound_by, **unpadded)
 
 
 def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
@@ -2863,7 +2975,8 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
     from one seed-0 draw (every leaf in f32) carried to both, on one
     ``demo_batch``.  Returns the loss's relative difference, each leaf's
     max |d| / max |g_cpu|, the largest attention-projection gradients on the
-    card, and the ``flash_attn`` launches of the card's loss and backward."""
+    card, and the ``flash_attn`` forward and backward launches of the card's
+    loss and backward."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -2883,8 +2996,9 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
         loss, _ = api.loss(model, {k: torch.as_tensor(v, device=d) for k, v in data.items()})
         grads = torch.autograd.grad(loss, params)
         _sync(d)
+        lc = _read_counts()
         out[name] = (float(loss), {n: g.float().cpu() for n, g in zip(names, grads)},
-                     _read_counts()["flash_attn"])
+                     (lc["flash_attn"], lc["flash_attn_backward"]))
         del model, params, grads, loss
     del tree, host_tree
     _free(dev)
@@ -2897,14 +3011,10 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
 
 
 def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                micro: int = TRAIN_MICRO, layers: int | None = None,
-                keep: Path | None = None) -> tuple[dict, dict]:
-    """LM training on the card: the ``flash_attn`` autograd Function, the
-    card against the CPU at 2 layers, Qwen1.5-0.5B trained through
-    ``Trainer`` with a restart, and the launcher.  Returns the launch counts
-    of the Trainer runs, and for phase ``train_mesh`` the uninterrupted
-    run's losses by step, the state digest at the checkpoint and, with
-    ``keep``, that checkpoint linked into ``keep``."""
+                micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
+    """LM training on the card: Qwen1.5-0.5B card against CPU at 2 layers,
+    trained through ``Trainer`` with a restart, and the launcher.  Returns
+    the launch counts of the Trainer runs."""
     import shutil
     import tempfile
 
@@ -2917,20 +3027,9 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     from repro_torch.models.registry import get_model
     from repro_torch.train.optimizer import OptConfig, adamw_update
     from repro_torch.train.train_step import make_train_step, split_microbatches
-    from repro_torch.train.train_step import state_digest as train_digest
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
-    for shape in FLASH_GRAD_SHAPES:
-        r = flash_grad_check(dev, *shape)
-        log(f"[train] flash_attn autograd {r['label']} {shape[1:]}: dq/dk/dv vs plain "
-            + ", ".join(f"{k} {v:.3g}" for k, v in r["errs"].items())
-            + f" (limit {FLASH_GRAD_TOL}); forward kernel {r['kernel_ms']:.4f} ms (bound "
-            f"{r['fwd_bound'][0]:.5f}, {r['fwd_bound'][1]}), SDPA forward {r['sdpa_ms']:.4f}; "
-            f"blocked backward {r['backward_ms']:.4f} ms (bound {r['bwd_bound'][0]:.5f} "
-            f"{r['bwd_bound'][1]} at the bf16 peak, {r['bwd_bound_f32'][0]:.5f} at the f32 "
-            f"peak), SDPA backward {r['sdpa_bwd_ms']:.4f} ms (eager, CUDA events)")
-
     base_cfg = get_config(TRAIN_ARCH)
     cmp = train_card_vs_cpu(dev, dataclasses.replace(base_cfg, n_layers=2))
     worst = max(cmp["rel"], key=cmp["rel"].get)
@@ -2939,14 +3038,15 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
         f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
         f"{LM_REL_TOL}; attention projections' max |g| on the card: smallest "
         f"{min(cmp['proj'].values()):.3g} ({min(cmp['proj'], key=cmp['proj'].get)}); "
-        f"flash_attn launches {cmp['launches']}")
+        f"flash_attn launches {cmp['launches'][0]}, backward {cmp['launches'][1]}")
     require(cmp["loss_rel"] <= LM_REL_TOL, f"train loss card vs CPU {cmp['loss_rel']:.3g}")
     bad = {n: e for n, e in cmp["rel"].items() if not e <= LM_REL_TOL}
     require(not bad, f"gradients card vs CPU over {LM_REL_TOL}: {bad}")
     require(len(cmp["proj"]) == 2 * 7 and all(g > 0 for g in cmp["proj"].values()),
             f"an attention projection has no gradient on the card: {cmp['proj']}")
-    require(cmp["launches"] == 2 * 2, f"flash_attn launched {cmp['launches']} times in the "
-            "2-layer loss and backward, expected 4 (forward and recompute)")
+    require(cmp["launches"] == (2 * 2, 2), f"flash_attn launched {cmp['launches']} times "
+            "(forward, backward) in the 2-layer loss and backward, expected (4, 2): forward "
+            "and recompute, and one backward a layer")
 
     n_layers = layers or base_cfg.n_layers
     cfg = dataclasses.replace(base_cfg, n_layers=n_layers,
@@ -2957,7 +3057,6 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     root = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
     per_launch = n_layers * micro * 2  # forward and remat recompute
     records: list = []
-    kept: dict = {}
 
     def trainer(ckpt_dir, n):
         t = Trainer(api, data, opt_cfg, TrainerConfig(
@@ -2970,15 +3069,14 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
             _sync(dev)
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            before = flash.attention.launches
+            before = flash.attention.launches, flash.attention.backward_launches
             t0 = time.perf_counter()
             out = step_fn(model, opt, b)
             loss = float(out[2]["loss"])
             _sync(dev)
-            if int(out[1]["step"]) == TRAIN_CKPT_AT and "digest" not in kept:
-                kept["digest"] = train_digest(out[0], out[1])
             records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
-                                launches=flash.attention.launches - before,
+                                launches=flash.attention.launches - before[0],
+                                backward=flash.attention.backward_launches - before[1],
                                 peak=torch.cuda.max_memory_allocated(dev)
                                 if dev.type == "cuda" else 0))
             return out
@@ -2992,9 +3090,8 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
         del full  # the first run's model and moments, before the restart's
         _free(dev)
         restart_dir = root / "restart"
-        for d in [restart_dir, keep] if keep is not None else [restart_dir]:
-            shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
-                            d / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
+        shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
+                        restart_dir / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
         shutil.rmtree(root / "full")
         resumed_t = trainer(restart_dir, steps)
         resumed = resumed_t.run()
@@ -3004,13 +3101,9 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
             step = i + 1 if i < steps else TRAIN_CKPT_AT + i - steps + 1
             log(f"[train] {'run' if i < steps else 'restart'} step {step}: loss {r['loss']:.6f}, "
                 f"{r['ms']:.1f} ms, {batch * seq / r['ms'] * 1e3:.0f} tokens/s, peak "
-                f"{r['peak'] / 2**30:.2f} GiB, flash_attn {r['launches']}")
-        require(all(r["launches"] == per_launch for r in records),
-                f"flash_attn launched {[r['launches'] for r in records]} times a step, "
-                f"expected {per_launch} ({n_layers} layers x {micro} microbatches x 2)")
-        require(launches["flash_attn"] == wgmma == per_launch * len(records),
-                f"flash_attn launches {launches['flash_attn']} (tensor cores {wgmma}), "
-                f"expected {per_launch * len(records)}")
+                f"{r['peak'] / 2**30:.2f} GiB, flash_attn {r['launches']}, backward "
+                f"{r['backward']}")
+        _require_launches("train", records, launches, per_launch, len(records), wgmma)
         losses = [x for _, x in full_losses]
         require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
         again = dict(resumed["losses"])
@@ -3060,27 +3153,71 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
         shutil.rmtree(root, ignore_errors=True)
         _free(dev)
 
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
-            "--steps", "2", "--batch", str(batch), "--seq", str(seq),
-            "--microbatches", str(micro)]
-    if dev.type != "cuda":
-        argv += ["--device", "cpu"]
+    args = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(batch), "--seq", str(seq),
+            "--microbatches", str(micro), *(["--device", "cpu"] if dev.type != "cuda" else [])]
     t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=str(ROOT), capture_output=True, text=True, timeout=600,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    log(f"[train] {' '.join(argv[1:])}: exit {proc.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(proc.stdout.strip().splitlines()))
-    require(proc.returncode == 0, f"the train launcher failed: {proc.stderr[-2000:]}")
-    log(f"[train] launches in the Trainer runs: {launches}; phase "
+    lines, counts = run_train_launcher(args)
+    lc = _launcher_counts(counts, "train launcher", per_launch, 2, wgmma=True)
+    log(f"[train] python -m repro_torch.launch.train {' '.join(args)} (in this process): "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+    _free(dev)
+    _count_into(launches, lc)
+    log(f"[train] launches in the Trainer runs and the launcher: {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return launches, dict(losses=dict(full_losses), digest=kept.get("digest"), ckpt=keep)
+    return launches
 
 
-# the train_mesh phase: phase train's model and settings on 2 ranks sharing the card
+def run_train_launcher(args: list[str]) -> tuple[list[str], dict]:
+    """``python -m repro_torch.launch.train args`` in this process, the
+    module run as ``-m`` runs it (``runpy``): the lines it prints, and this
+    process's ``flash_attn`` counts over the run (all forward launches, those
+    on the tensor cores, backward launches, and calls of
+    ``attention_backward_blocked``)."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels.flash_attn import ops as flash
+
+    _count_blocked()
+
+    def counts():
+        a = flash.attention
+        return [a.launches, a.wgmma_launches, a.backward_launches, _blocked_calls()]
+
+    before, out, argv = counts(), io.StringIO(), sys.argv
+    sys.argv = ["-m", *args]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+    diff = [a - b for a, b in zip(counts(), before)]
+    return out.getvalue().strip().splitlines(), dict(zip(("forward", "wgmma", "backward",
+                                                          "blocked"), diff))
+
+
+def _launcher_counts(got: dict, label: str, per_step: int, steps: int, wgmma: bool) -> dict:
+    """A launcher run's counts (``run_train_launcher``) held to ``per_step``
+    forward launches a step (the forward and the remat recompute; all on
+    the tensor cores when ``wgmma``), half as many backward launches, and no
+    call of the plain backward; returned as launch counts of the path."""
+    want = dict(forward=per_step * steps, wgmma=per_step * steps if wgmma else 0,
+                backward=per_step // 2 * steps, blocked=0)
+    require(got == want, f"{label}: flash_attn counts {got}, expected {want} (blocked: "
+            "calls of attention_backward_blocked, the plain backward)")
+    return {**_no_counts(), "flash_attn": got["forward"], "flash_attn_backward": got["backward"]}
+
+
+# the train_mesh and train_tp phases: phase train's model and settings on 2
+# ranks sharing the card, cut to MESH_LAYERS of its 24 layers (full width),
+# against a one-process run at that depth
 MESH_RANKS = 2
+MESH_LAYERS = 2
+MESH_LAUNCH_STEPS = 3  # the launcher's steps, on Qwen1.5-0.5B's smoke config
 MESH_STEPS, MESH_CKPT_AT, MESH_COMPRESSED_STEPS = 4, 2, 3
-MESH_LOSS_TOL = 2e-3  # relative, steps 2 on, against phase train (PERF.md §6)
-MESH_STEP1_TOL = 1e-3  # relative, step 1 against phase train: the same parameters
+MESH_LOSS_TOL = 2e-3  # relative, steps 2 on, against the one-process run (PERF.md §6)
+MESH_STEP1_TOL = 1e-3  # relative, step 1 against the one-process run: the same parameters
 COMPRESSED_STEP1_TOL = 1e-6  # the compressed step's step 1 against the data-parallel one
 PSUM_ELEMS = 1 << 20
 
@@ -3119,7 +3256,7 @@ def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records
         _sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        before = flash.attention.launches
+        before = flash.attention.launches, flash.attention.backward_launches
         step_no = int(opt["step"]) + 1
         counter = OpCounter(timed=True, ops=False) if t.tp and step_no in count_steps else None
 
@@ -3149,7 +3286,8 @@ def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records
         else:
             stats = {} if t.tp else getattr(step_fn, "stats", {"collective_s": 0.0, "bytes": 0})
         records.append(dict(step=int(out[1]["step"]), ms=ms, loss=loss,
-                            launches=flash.attention.launches - before,
+                            launches=flash.attention.launches - before[0],
+                            backward=flash.attention.backward_launches - before[1],
                             **({"collective_ms": stats["collective_s"] * 1e3,
                                 "bytes": stats["bytes"]} if stats else {}),
                             **{k: stats[k] for k in ("by_kind", "seconds_by_kind")
@@ -3164,7 +3302,7 @@ def _mesh_trainer(api, data, opt_cfg, ckpt_dir, steps, micro, mesh, dev, records
 
 def train_mesh_worker(spec_path: str, device: str | None) -> int:
     """A rank of phase ``train_mesh`` (``REPRO_SHARD_*`` set by the phase):
-    (1) data parallelism, (2) phase train's checkpoint restored and one step,
+    (1) data parallelism, (2) the one-process run's checkpoint restored and one step,
     (3) the compressed cross-pod step, (4) ``compressed_psum`` on seeded
     inputs; prints one ``SHARD_RESULT`` line a job."""
     import torch
@@ -3182,6 +3320,7 @@ def train_mesh_worker(spec_path: str, device: str | None) -> int:
     from repro_torch.train.trainer import state_from_tree
 
     spec = json.loads(Path(spec_path).read_text())
+    _count_blocked()
     init_em_distributed(device=device)
     rank, n = dist.get_rank(), dist.get_world_size()
     dev_type = "cpu" if device == "cpu" else "cuda"
@@ -3193,7 +3332,7 @@ def train_mesh_worker(spec_path: str, device: str | None) -> int:
     data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
 
-    # (1) data parallelism, and (2) phase train's checkpoint on 2 ranks
+    # (1) data parallelism, and (2) the one-process run's checkpoint on 2 ranks
     for job, ckpt_dir, steps in [("dp", spec["dp_dir"], MESH_STEPS),
                                  ("restore", spec["train_ckpt"], spec["train_ckpt_at"] + 1)]:
         records: list = []
@@ -3253,7 +3392,16 @@ def train_mesh_worker(spec_path: str, device: str | None) -> int:
                                           torch.as_tensor(e, device=dev))
     np.savez(Path(spec["psum_out"]) / f"rank{rank}.npz", out=got.cpu().numpy(),
              err=resid.cpu().numpy())
-    _rank_result("train_mesh", job="psum", **who)
+    _rank_result("train_mesh", job="psum", blocked=_blocked_calls(), **who)
+    _free(dev)
+
+    # (5) the launcher on Qwen's smoke config, data-parallel over this group
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(MESH_LAUNCH_STEPS),
+            *(["--device", device] if device is not None else [])]
+    t0 = time.perf_counter()
+    lines, counts = run_train_launcher(args)
+    _rank_result("train_mesh", job="launch", args=args, lines=lines, counts=counts,
+                 seconds=time.perf_counter() - t0, **who)
     dist.destroy_process_group()
     return 0
 
@@ -3291,6 +3439,23 @@ def _train_cfg(layers: int | None, smoke: bool = False):
     return dataclasses.replace(cfg, n_layers=n, remat_group=default_remat_group(n))
 
 
+def _require_launches(label: str, steps: list, launches: dict, per_step: int, n_steps: int,
+                      wgmma: int | None = None) -> None:
+    """A training run's ``flash_attn`` launches: ``per_step`` forward launches
+    a step (the forward and the remat recompute, all on the tensor cores)
+    and half as many backward launches (one a forward that autograd
+    differentiates), in each step's record and in the run's ``launches``
+    over its ``n_steps`` steps."""
+    got = [(rec["launches"], rec["backward"]) for rec in steps]
+    require(all(g == (per_step, per_step // 2) for g in got),
+            f"{label}: flash_attn launched {got} times a step (forward, backward), expected "
+            f"{(per_step, per_step // 2)}")
+    want = (per_step * n_steps, per_step // 2 * n_steps)
+    have = (launches["flash_attn"], launches["flash_attn_backward"])
+    require(have == want and wgmma in (None, want[0]),
+            f"{label}: flash_attn launches {have} (tensor cores {wgmma}), expected {want}")
+
+
 def _mesh_log(tag: str, r: dict) -> None:
     for rec in r["records"]:
         if "ms" not in rec:
@@ -3303,13 +3468,15 @@ def _mesh_log(tag: str, r: dict) -> None:
             + (f", error feedback norm {rec['err_norm']:.6g}" if "err_norm" in rec else ""))
 
 
-def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                     micro: int = TRAIN_MICRO, layers: int | None = None,
-                     smoke: bool = False) -> dict:
-    """Training over a mesh of ranks on the card (see the module docstring).
-    ``train`` is phase train's result: its losses by step, the state digest
-    at its checkpoint and that checkpoint's directory.  Returns the launch
-    counts of the ranks' and this process's Trainer runs."""
+def phase_train_mesh(dev, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                     micro: int = TRAIN_MICRO, layers: int | None = MESH_LAYERS,
+                     smoke: bool = False) -> tuple[dict, dict]:
+    """Training over a mesh of ranks on the card (see the module docstring),
+    phase train's model cut to ``layers``.  First the run the ranks are
+    held to: the same model on this one process, ``TRAIN_CKPT_AT + 1`` steps.  Returns the
+    launch counts of the Trainer runs (this process's and the ranks'), and
+    the one-process run's losses by step (which phase ``train_tp`` is held
+    to as well)."""
     import shutil
     import tempfile
 
@@ -3319,12 +3486,13 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
     from repro_torch.train.optimizer import OptConfig
 
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     api = get_model(_train_cfg(layers, smoke))
     n_layers = api.cfg.n_layers
     per_step = n_layers * micro * 2
-    want = train["losses"]
     dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
+    data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
 
     def rel(a, b):
         return abs(a - b) / abs(b)
@@ -3332,9 +3500,32 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         tmp = Path(tmp)
         (tmp / "psum").mkdir()
+
+        # (0) the one-process run: the same model and data, the ranks' yardstick
+        records: list = []
+        _zero_counts()
+        _mesh_trainer(api, data, opt_cfg, tmp / "one_rank", TRAIN_CKPT_AT + 1, micro, None,
+                      dev, records).run()
+        lc = _read_counts()
+        _count_into(total, lc)
+        ref_steps = [rec for rec in records if "ms" in rec]
+        _require_launches("train_mesh one-process run", ref_steps, lc, per_step,
+                          TRAIN_CKPT_AT + 1, flash.attention.wgmma_launches)
+        want = {rec["step"]: rec["loss"] for rec in ref_steps}
+        ref_digest = {rec["step"]: rec["digest"] for rec in ref_steps}[TRAIN_CKPT_AT]
+        shutil.copytree(tmp / "one_rank" / f"step_{TRAIN_CKPT_AT:09d}",
+                        tmp / "ref_ckpt" / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
+        shutil.rmtree(tmp / "one_rank")
+        log(f"[train_mesh] the one-process run, {api.cfg.name} at {n_layers} of "
+            f"{_train_cfg(None, smoke).n_layers} layers on one process, "
+            f"{len(ref_steps)} steps: losses " + ", ".join(f"{x:.6f}" for x in want.values())
+            + "; step ms " + ", ".join(f"{rec['ms']:.1f}" for rec in ref_steps)
+            + f"; peak {max(rec['peak'] for rec in ref_steps) / 2**30:.2f} GiB")
+        _free(dev)
+
         spec = dict(layers=layers, smoke=smoke, seq=seq, batch=batch, micro=micro,
                     dp_dir=str(tmp / "dp"),
-                    train_ckpt=str(train["ckpt"]), train_ckpt_at=TRAIN_CKPT_AT,
+                    train_ckpt=str(tmp / "ref_ckpt"), train_ckpt_at=TRAIN_CKPT_AT,
                     psum_out=str(tmp / "psum"))
         (tmp / "spec.json").write_text(json.dumps(spec))
         t0 = time.perf_counter()
@@ -3344,7 +3535,7 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
             "exit")
         runs = [{r["job"]: r for r in _rank_results(out, "train_mesh")} for out in outs]
 
-        # (1) data parallelism against phase train
+        # (1) data parallelism against the one-process run
         dp = [r["dp"] for r in runs]
         for r in dp:
             _mesh_log("data-parallel", r)
@@ -3352,12 +3543,8 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
             steps = [rec for rec in r["records"] if "ms" in rec]
             require([rec["step"] for rec in steps] == list(range(1, MESH_STEPS + 1)),
                     f"data-parallel steps {[rec['step'] for rec in steps]}")
-            require(all(rec["launches"] == per_step for rec in steps),
-                    f"rank {r['rank']}: flash_attn launched {[rec['launches'] for rec in steps]}"
-                    f" times a step, expected {per_step}")
-            require(r["launches"]["flash_attn"] == r["wgmma"] == per_step * MESH_STEPS,
-                    f"rank {r['rank']}: flash_attn launches {r['launches']['flash_attn']} "
-                    f"(tensor cores {r['wgmma']}), expected {per_step * MESH_STEPS}")
+            _require_launches(f"train_mesh rank {r['rank']}", steps, r["launches"], per_step,
+                              MESH_STEPS, r["wgmma"])
             log(f"[train_mesh] data-parallel rank {r['rank']}: one more step under "
                 f"torch.profiler: device busy {r['busy']} (this rank's kernels)")
         digests = [[rec["digest"] for rec in r["records"] if "ms" in rec] for r in dp]
@@ -3367,38 +3554,43 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
                     for r in dp), "the ranks' losses differ")
         diffs = {s: rel(x, want[s]) for s, x in losses.items()}
         require(diffs[1] <= MESH_STEP1_TOL and max(diffs.values()) <= MESH_LOSS_TOL,
-                f"data-parallel losses {losses} against phase train's {want}: {diffs}")
+                f"data-parallel losses {losses} against the one-process run's {want}: {diffs}")
         log(f"[train_mesh] data parallelism, {MESH_RANKS} ranks ({dp[0]['backend']} on "
             f"{dp[0]['device']}), {n_layers} layers, batch {batch} x {seq} in {micro} "
-            f"microbatches: losses {losses}; relative to phase train's "
+            f"microbatches: losses {losses}; relative to the one-process run's "
             + ", ".join(f"step {s} {d:.3g}" for s, d in diffs.items())
             + f" (limits {MESH_STEP1_TOL} at step 1, {MESH_LOSS_TOL}); the replicas' "
             f"parameters, moments and step agree after every step")
 
-        # (2) elastic restore: phase train's checkpoint on 2 ranks
+        # (2) elastic restore: the one-process run's checkpoint on 2 ranks
         rs = [r["restore"] for r in runs]
         for r in rs:
             _mesh_log("restore 1 -> 2", r)
             _count_into(total, r["launches"])
             first = r["records"][0]
-            require(first["step"] == TRAIN_CKPT_AT and first["restored"] == train["digest"],
+            require(first["step"] == TRAIN_CKPT_AT and first["restored"] == ref_digest,
                     f"rank {r['rank']} restored step {first['step']} with digest "
-                    f"{first['restored'][:16]}, phase train saved {str(train['digest'])[:16]}")
+                    f"{first['restored'][:16]}, the one-process run saved {ref_digest[:16]}")
+            _require_launches(f"train_mesh restore rank {r['rank']}",
+                              [rec for rec in r["records"] if "ms" in rec], r["launches"],
+                              per_step, 1, r["wgmma"])
         (rec5,) = [rec for rec in rs[0]["records"] if "ms" in rec]
         require(all([rec for rec in r["records"] if "ms" in rec][0]["digest"] == rec5["digest"]
                     for r in rs), "the restored replicas differ")
         d5 = rel(rec5["loss"], want[TRAIN_CKPT_AT + 1])
         require(d5 <= MESH_LOSS_TOL, f"step {TRAIN_CKPT_AT + 1} after the 1 -> 2 restore: "
                 f"{rec5['loss']} against {want[TRAIN_CKPT_AT + 1]}")
-        log(f"[train_mesh] phase train's step-{TRAIN_CKPT_AT} checkpoint restored on "
+        log(f"[train_mesh] the one-process run's step-{TRAIN_CKPT_AT} checkpoint restored on "
             f"{MESH_RANKS} ranks bit for bit; step {TRAIN_CKPT_AT + 1} loss {rec5['loss']:.6f}, "
-            f"relative to phase train's {d5:.3g}")
+            f"relative to the one-process run's {d5:.3g}")
 
         # (3) the compressed cross-pod step
         cs = [r["compressed"] for r in runs]
         for r in cs:
             _mesh_log("compressed", r)
             _count_into(total, r["launches"])
+            _require_launches(f"train_mesh compressed rank {r['rank']}", [], r["launches"],
+                              per_step, MESH_COMPRESSED_STEPS)
             require(all(rec["agree"] for rec in r["records"]), "compressed replicas differ")
             require(all(rec["err_norm"] > 0 for rec in r["records"]),
                     "the error feedback stayed 0")
@@ -3409,6 +3601,9 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
             f"{[rec['loss'] for rec in cs[0]['records']]}; step 1 relative to the data-parallel "
             f"step 1 {rel(c1, losses[1]):.3g} (limit {COMPRESSED_STEP1_TOL}); int32 exchange "
             f"{cs[0]['records'][0]['bytes'] / 1e9:.3f} GB a step a rank")
+
+        require(all(r["psum"]["blocked"] == 0 for r in runs),
+                "a rank ran attention_backward_blocked, the plain version of the backward")
 
         # (4) compressed_psum bit for bit against the host's formula
         want_psum = psum_on_host([_psum_inputs(r) for r in range(MESH_RANKS)])
@@ -3425,16 +3620,13 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
         one_dir = tmp / "one"
         shutil.copytree(tmp / "dp" / f"step_{MESH_CKPT_AT:09d}",
                         one_dir / f"step_{MESH_CKPT_AT:09d}", copy_function=os.link)
-        data = CorpusConfig(vocab_size=api.cfg.vocab_size, seq_len=seq, global_batch=batch,
-                            seed=0)
-        records: list = []
+        records = []
         _zero_counts()
-        _mesh_trainer(api, data, OptConfig(lr=1e-3, warmup_steps=2), one_dir, MESH_STEPS,
-                      micro, None, dev, records).run()
+        _mesh_trainer(api, data, opt_cfg, one_dir, MESH_STEPS, micro, None, dev, records).run()
         lc = _read_counts()
         _count_into(total, lc)
-        require(lc["flash_attn"] == flash.attention.wgmma_launches == per_step * 2,
-                f"flash_attn launched {lc['flash_attn']} times in the 2 -> 1 restore")
+        _require_launches("train_mesh 2 -> 1 restore", [rec for rec in records if "ms" in rec],
+                          lc, per_step, 2, flash.attention.wgmma_launches)
         saved = {rec["step"]: rec["digest"] for rec in dp[0]["records"] if "ms" in rec}
         require(records[0]["restored"] == saved[MESH_CKPT_AT],
                 f"the 2 -> 1 restore differs from the state the ranks saved at step "
@@ -3443,37 +3635,38 @@ def phase_train_mesh(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_
         d1 = {s: rel(x, want[s]) for s, x in one.items()}
         require(sorted(one) == [MESH_CKPT_AT + 1, MESH_STEPS]
                 and max(d1.values()) <= MESH_LOSS_TOL,
-                f"steps after the 2 -> 1 restore: {one} against phase train's {want}")
+                f"steps after the 2 -> 1 restore: {one} against the one-process run's {want}")
         log(f"[train_mesh] the ranks' step-{MESH_CKPT_AT} checkpoint restored on one process "
-            f"bit for bit; losses {one}, relative to phase train's "
+            f"bit for bit; losses {one}, relative to the one-process run's "
             + ", ".join(f"step {s} {d:.3g}" for s, d in d1.items())
             + ", to the ranks' " + ", ".join(f"step {s} {rel(x, losses[s]):.3g}"
                                              for s, x in one.items()))
         _free(dev)
 
         # (5) the launcher as 2 ranks
-        argv = ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke", "--steps",
-                "3", *(["--device", str(dev)] if dev.type != "cuda" else [])]
-        t0 = time.perf_counter()
-        outs = _spawn_ranks(MESH_RANKS, argv, tmp / "launch", 600)
-        lines = [[ln for ln in o.splitlines() if ln.startswith(("arch=", "step "))]
-                 for o in outs]
+        launch = [r["launch"] for r in runs]
+        lines = [[ln for ln in r["lines"] if ln.startswith(("arch=", "step "))] for r in launch]
         require(all(f"devices={MESH_RANKS}" in ls[0] for ls in lines)
                 and all(ls == lines[0] for ls in lines),
                 f"the launcher's ranks printed {lines}")
-        log(f"[train_mesh] python {' '.join(argv)} as {MESH_RANKS} ranks: exit 0 in "
-            f"{time.perf_counter() - t0:.1f} s, both print " + " | ".join(lines[0]))
-    if train["ckpt"] is not None:
-        shutil.rmtree(train["ckpt"], ignore_errors=True)
+        smoke_layers = _train_cfg(None, smoke=True).n_layers
+        for r in launch:  # micro 1; Qwen's smoke config is the FMA route (hd 16)
+            _count_into(total, _launcher_counts(r["counts"], f"train_mesh launcher rank "
+                                                f"{r['rank']}", smoke_layers * 2,
+                                                MESH_LAUNCH_STEPS, False))
+        log(f"[train_mesh] python -m repro_torch.launch.train {' '.join(launch[0]['args'])} "
+            f"in each of the {MESH_RANKS} ranks: {launch[0]['seconds']:.1f} s, "
+            f"{smoke_layers * MESH_LAUNCH_STEPS} backward launches a rank, no plain "
+            f"backward; both print " + " | ".join(lines[0]))
     log(f"[train_mesh] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
-    return total
+    return total, dict(losses=want)
 
 
-# the train_tp phase: phase train's model and settings over a (data, model)
+# the train_tp phase: phase train_mesh's model and settings over a (data, model)
 # mesh of (1, 2), 2 ranks sharing the card
 TP_SHAPE = (1, 2)
 TP_STEPS, TP_CKPT_AT = 4, 2
-TP_COUNTED = (1, 2)  # steps whose collectives OpCounter counts; 3 and 4 run uncounted
+TP_COUNTED = (1, 2)  # steps whose collectives OpCounter counts; steps 3 and 4 run uncounted
 
 
 def _tp_mesh(dev_type: str, shape):
@@ -3498,6 +3691,7 @@ def train_tp_worker(spec_path: str, device: str | None) -> int:
     from repro_torch.train.optimizer import OptConfig
 
     spec = json.loads(Path(spec_path).read_text())
+    _count_blocked()
     init_em_distributed(device=device)
     rank, n = dist.get_rank(), dist.get_world_size()
     dev_type = "cpu" if device == "cpu" else "cuda"
@@ -3527,7 +3721,7 @@ def train_tp_worker(spec_path: str, device: str | None) -> int:
         launches = _read_counts()
         wgmma = _wrappers()["flash_attn"].wgmma_launches
         _rank_result("train_tp", job=job, records=records, launches=launches, wgmma=wgmma,
-                     busy=records[-1].get("busy"), **who)
+                     busy=records[-1].get("busy"), blocked=_blocked_calls(), **who)
         del out
         _free(dev)
     dist.destroy_process_group()
@@ -3547,11 +3741,12 @@ def _checkpoint_digest(api, ckpt_dir: Path, step: int) -> str:
     return train_digest(state["params"], state["opt"])
 
 
-def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                   micro: int = TRAIN_MICRO, layers: int | None = None,
+def phase_train_tp(dev, ref: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                   micro: int = TRAIN_MICRO, layers: int | None = MESH_LAYERS,
                    smoke: bool = False) -> dict:
-    """Tensor-parallel training on the card (see the module docstring).
-    ``train`` is phase train's result (its losses by step).  Returns the
+    """Tensor-parallel training on the card (see the module docstring), phase
+    train's model cut to ``layers``.  ``ref`` holds the losses by step of
+    phase train_mesh's one-process run at that depth.  Returns the
     launch counts of the ranks' and this process's Trainer runs."""
     import shutil
     import tempfile
@@ -3562,11 +3757,11 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
     from repro_torch.train.optimizer import OptConfig
 
     t_phase = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = _no_counts()
     api = get_model(_train_cfg(layers, smoke))
     n_layers = api.cfg.n_layers
     per_step = n_layers * micro * 2
-    want = train["losses"]
+    want = ref["losses"]
     dev_arg = [] if dev.type == "cuda" else ["--shard-device", str(dev)]
 
     def rel(a, b):
@@ -3584,7 +3779,7 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
             "exit")
         runs = [{r["job"]: r for r in _rank_results(out, "train_tp")} for out in outs]
 
-        # (1) the tensor-parallel steps against phase train
+        # (1) the tensor-parallel steps against the one-process run
         tp = [r["tp"] for r in runs]
         for r in tp:
             _count_into(total, r["launches"])
@@ -3605,12 +3800,8 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
             steps = [rec for rec in r["records"] if "ms" in rec]
             require([rec["step"] for rec in steps] == list(range(1, TP_STEPS + 1)),
                     f"tensor-parallel steps {[rec['step'] for rec in steps]}")
-            require(all(rec["launches"] == per_step for rec in steps),
-                    f"rank {r['rank']}: flash_attn launched {[rec['launches'] for rec in steps]}"
-                    f" times a step, expected {per_step}")
-            require(r["launches"]["flash_attn"] == r["wgmma"] == per_step * TP_STEPS,
-                    f"rank {r['rank']}: flash_attn launches {r['launches']['flash_attn']} "
-                    f"(tensor cores {r['wgmma']}), expected {per_step * TP_STEPS}")
+            _require_launches(f"train_tp rank {r['rank']}", steps, r["launches"], per_step,
+                              TP_STEPS, r["wgmma"])
             log(f"[train_tp] rank {r['rank']}: step {TP_STEPS} under torch.profiler: device "
                 f"busy {r['busy']} (this rank's kernels)")
         losses = {rec["step"]: rec["loss"] for rec in tp[0]["records"] if "ms" in rec}
@@ -3618,16 +3809,19 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
                     for r in tp), "the ranks' losses differ")
         diffs = {s: rel(x, want[s]) for s, x in losses.items()}
         require(diffs[1] <= MESH_STEP1_TOL and max(diffs.values()) <= MESH_LOSS_TOL,
-                f"tensor-parallel losses {losses} against phase train's {want}: {diffs}")
+                f"tensor-parallel losses {losses} against the one-process run's {want}: {diffs}")
         log(f"[train_tp] tensor parallelism over (data, model) = {TP_SHAPE}, {MESH_RANKS} ranks "
             f"({tp[0]['backend']} on {tp[0]['device']}), {n_layers} layers, "
             f"{api.cfg.n_heads // TP_SHAPE[1]} of {api.cfg.n_heads} heads and "
             f"{api.cfg.vocab_size // TP_SHAPE[1]} of {api.cfg.vocab_size} vocabulary rows a "
             f"rank, batch {batch} x {seq} in {micro} microbatches: losses {losses}; relative "
-            "to phase train's " + ", ".join(f"step {s} {d:.3g}" for s, d in diffs.items())
+            "to the one-process run's " + ", ".join(f"step {s} {d:.3g}" for s, d in diffs.items())
             + f" (limits {MESH_STEP1_TOL} at step 1, {MESH_LOSS_TOL}); the blocks each rank "
             "shares with another (the norms, and every leaf across data ranks) agree after "
             "every step")
+
+        require(all(r["restore"]["blocked"] == 0 for r in runs),
+                "a rank ran attention_backward_blocked, the plain version of the backward")
 
         # (2) the step-2 checkpoint on a (2, 1) data-parallel mesh and on one process
         saved = _checkpoint_digest(api, tmp / "tp", TP_CKPT_AT)
@@ -3638,6 +3832,9 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
             require(first["step"] == TP_CKPT_AT and first["restored"] == saved,
                     f"rank {r['rank']} restored step {first['step']} with digest "
                     f"{first['restored'][:16]}, the checkpoint holds {saved[:16]}")
+            _require_launches(f"train_tp (2, 1) restore rank {r['rank']}",
+                              [rec for rec in r["records"] if "ms" in rec], r["launches"],
+                              per_step, 1, r["wgmma"])
         (rec3,) = [rec for rec in rs[0]["records"] if "ms" in rec]
         require(all([rec for rec in r["records"] if "ms" in rec][0]["digest"] == rec3["digest"]
                     for r in rs), "the restored replicas differ")
@@ -3652,8 +3849,8 @@ def phase_train_tp(dev, train: dict, seq: int = TRAIN_SEQ, batch: int = TRAIN_BA
                       micro, None, dev, records).run()
         lc = _read_counts()
         _count_into(total, lc)
-        require(lc["flash_attn"] == per_step, f"flash_attn launched {lc['flash_attn']} times "
-                "in the restore on one process")
+        _require_launches("train_tp restore on one process",
+                          [rec for rec in records if "ms" in rec], lc, per_step, 1)
         require(records[0]["restored"] == saved, "the restore on one process differs from the "
                 "checkpoint")
         (one3,) = [rec for rec in records if "ms" in rec]
@@ -3773,9 +3970,9 @@ def phase_profile(dev, fixpoint, max_evals: int = 100) -> None:
     prof = _profile_run(dev, run)
     res, wall, busy = out["res"], prof["wall"], prof["busy"]
     per_name: dict[str, list[float]] = {}
-    for e in prof["events"]:
-        name = e.name.removeprefix("void ").removeprefix("(anonymous namespace)::")
-        per_name.setdefault(name, []).append(e.time_range.elapsed_us())
+    for name, us in prof["events"]:
+        name = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+        per_name.setdefault(name, []).append(us)
     if not per_name:
         log("[profile] device time not measured (the profiler saw no device activity)")
         return
@@ -3842,31 +4039,41 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = resolve_device("cuda:0")
     t0 = time.perf_counter()
-    phase_build(args.ptxas_verbose)
+
+    def phase(name, fn, *a, **kw):
+        """Run one phase and print its seconds on a line of their own."""
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"[phase] {name} {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase("build", phase_build, args.ptxas_verbose)
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
-    rows = phase_kernels(dev, args.only)
+    _count_blocked()
+    rows = phase("kernels", phase_kernels, dev, args.only)
     if args.kernels_only:
         return 0
-    launches, resolved, seq_icm = phase_pipeline(dev)
-    rules_launches, rules_icm = phase_rules(dev, resolved)
-    parallel_launches = phase_parallel(dev, resolved, seq_icm, rules_icm)
-    stream_launches = phase_stream(dev, resolved)
-    matchers_launches = phase_matchers(dev, resolved)
-    dedup_launches = phase_dedup(dev)
-    serving_launches = phase_serving(dev)
-    shard_launches = phase_shard(dev)
-    lm_launches = phase_lm(dev)
-    families_launches = phase_lm_families(dev)
-    import tempfile
-
-    keep = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_ckpt_", dir=ROOT))
-    dry = start_dryrun()  # on the CPU, beside the training phases on the card
-    train_launches, train = phase_train(dev, keep=keep)
-    mesh_launches = phase_train_mesh(dev, train)
-    tp_launches = phase_train_tp(dev, train)
-    phase_dryrun(dry)
-    phase_profile(dev, resolved["mmp"])
+    blocked_in_kernels = _blocked_calls()  # the plain backward runs only in phase 2
+    launches, resolved, seq_icm = phase("pipeline", phase_pipeline, dev)
+    rules_launches, rules_icm = phase("rules", phase_rules, dev, resolved)
+    parallel_launches = phase("parallel", phase_parallel, dev, resolved, seq_icm, rules_icm)
+    stream_launches = phase("stream", phase_stream, dev, resolved)
+    matchers_launches = phase("matchers", phase_matchers, dev, resolved)
+    dedup_launches = phase("dedup", phase_dedup, dev)
+    serving_launches = phase("serving", phase_serving, dev)
+    shard_launches = phase("shard", phase_shard, dev)
+    dry = start_dryrun()  # on the CPU, beside the LM and training phases on the card
+    lm_launches = phase("lm", phase_lm, dev)
+    families_launches = phase("lm_families", phase_lm_families, dev)
+    train_launches = phase("train", phase_train, dev)
+    mesh_launches, ref = phase("train_mesh", phase_train_mesh, dev)
+    tp_launches = phase("train_tp", phase_train_tp, dev, ref)
+    phase("dryrun", phase_dryrun, dry)
+    phase("profile", phase_profile, dev, resolved["mmp"])
+    require(_blocked_calls() == blocked_in_kernels,
+            f"attention_backward_blocked ran {_blocked_calls() - blocked_in_kernels} times "
+            "outside phase 2's comparisons")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3875,37 +4082,38 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(smi[torch.cuda.current_device()] if len(smi) > 1 else smi[0])
 
+    paths = {"pipeline": launches, "rules": rules_launches, "parallel": parallel_launches,
+             "stream": stream_launches, "matchers": matchers_launches, "dedup": dedup_launches,
+             "serving": serving_launches, "shard": shard_launches, "lm": lm_launches,
+             "lm_families": families_launches, "train": train_launches,
+             "train_mesh": mesh_launches, "train_tp": tp_launches}
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         main_shape = mine[0]  # the first shape listed is the main path's per-eval call
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        extra = {}
+        if name == "flash_attn":  # its backward: the training paths' calls, phase 2's times
+            bwd = [r for r in rows if r["name"] == "flash_attn_backward"]
+            by_bwd = {path: counts["flash_attn_backward"] for path, counts in paths.items()}
+            extra = dict(
+                backward_launches=sum(by_bwd.values()), backward_launches_by_path=by_bwd,
+                backward_shape=bwd[0]["shape"],
+                backward_max_rel_err=max(max(r["errs"].values()) for r in bwd),
+                **{f"backward_{k}": bwd[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")})
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             **({"sources": meta["sources"]} if "sources" in meta else {}),
             replaces=meta["replaces"],
-            launches=(launches[name] + rules_launches[name] + parallel_launches[name]
-                      + stream_launches[name] + matchers_launches[name] + dedup_launches[name]
-                      + serving_launches[name] + shard_launches[name] + lm_launches[name]
-                      + families_launches[name] + train_launches[name]
-                      + mesh_launches[name] + tp_launches[name]),
-            launches_by_path={"pipeline": launches[name], "rules": rules_launches[name],
-                              "parallel": parallel_launches[name],
-                              "stream": stream_launches[name],
-                              "matchers": matchers_launches[name],
-                              "dedup": dedup_launches[name],
-                              "serving": serving_launches[name],
-                              "shard": shard_launches[name], "lm": lm_launches[name],
-                              "lm_families": families_launches[name],
-                              "train": train_launches[name],
-                              "train_mesh": mesh_launches[name],
-                              "train_tp": tp_launches[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             shape=main_shape["shape"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_shape["ms"], call_ms=main_shape["call_ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
             **({"dense_bound_ms": main_shape["dense_bound_ms"]}
                if "dense_bound_ms" in main_shape else {}),
-            library_ms=main_shape["library_ms"],
+            library_ms=main_shape["library_ms"], **extra,
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,13 +34,17 @@
 // as in the Pallas kernel), so exp(m_prev - m_new) is never inf - inf,
 // and the denominator is clamped at 1e-30.  Shared memory is dynamic
 // (115 KB at hd = 128, above the 48 KB static limit), which leaves room
-// for one block an SM at hd = 128.
+// for one block an SM at hd = 128.  Given an lse buffer (the training
+// path's forward), each row's natural log-sum-exp m + log(l) is written for
+// the backward (flash_attn_bwd.cu); the serving path passes null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -69,8 +73,9 @@ struct Layout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, float* __restrict__ out, int S,
-                      int Tn, int H, int Hkv, float scale, int causal) {
+                      const T* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int S, int Tn, int H, int Hkv, float scale,
+                      int causal) {
   using L = Layout<HD>;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -195,6 +200,7 @@ __global__ void __launch_bounds__(NT)
     const int row = q0 + ty + i * TY;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * S + row] = m[i] + logf(denom);
     float* o = out + ((size_t)b * S + row) * q_step + (size_t)h * HD;
 #pragma unroll
     for (int j = 0; j < L::DJ; ++j) {
@@ -204,64 +210,51 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// Raise the kernel's dynamic shared memory limit once per device, at its
-// first launch there, so that a launch captured into a CUDA graph later
-// makes no attribute call.
 template <typename T, int HD>
-cudaError_t allow_smem(int bytes) {
-  static std::atomic<bool> done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attn_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 64) done[dev].store(true);
-  return err;
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B,
-                   int S, int Tn, int H, int Hkv, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, float* lse,
+                   int B, int S, int Tn, int H, int Hkv, float scale, int causal,
                    cudaStream_t stream) {
   auto kernel = flash_attn_kernel<T, HD>;
   const int bytes = (int)Layout<HD>::bytes;
-  cudaError_t err = allow_smem<T, HD>(bytes);
+  static std::atomic<bool> done[64];
+  cudaError_t err = repro::allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + BQ - 1) / BQ, 1);
   kernel<<<grid, NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), out, S, Tn, H, Hkv, scale,
-                                      causal);
+                                      static_cast<const T*>(v), out, lse, S, Tn, H, Hkv,
+                                      scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, float* out,
-                      int B, int S, int Tn, int H, int Hkv, float scale, int causal,
+                      float* lse, int B, int S, int Tn, int H, int Hkv, float scale, int causal,
                       cudaStream_t stream) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, out, B, S, Tn, H, Hkv, scale, causal, stream);
-    case 16: return launch<T, 16>(q, k, v, out, B, S, Tn, H, Hkv, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, S, Tn, H, Hkv, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, Tn, H, Hkv, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, Tn, H, Hkv, scale, causal, stream);
+    case 8: return launch<T, 8>(q, k, v, out, lse, B, S, Tn, H, Hkv, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, S, Tn, H, Hkv, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, S, Tn, H, Hkv, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, S, Tn, H, Hkv, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, S, Tn, H, Hkv, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v alike).
+// dtype: 0 = float32, 1 = bfloat16 (q, k and v alike).  lse: null, or
+// (B, H, S) float32 for each row's log-sum-exp.
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v, float* out,
-                                int B, int S, int T, int H, int Hkv, int hd, float scale,
-                                int causal, int dtype, void* stream) {
+                                float* lse, int B, int S, int T, int H, int Hkv, int hd,
+                                float scale, int causal, int dtype, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (T <= 0 || Hkv <= 0 || H % Hkv != 0 || (S + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_hd<float>(hd, q, k, v, out, B, S, T, H, Hkv, scale, causal, st);
+    return (int)launch_hd<float>(hd, q, k, v, out, lse, B, S, T, H, Hkv, scale, causal, st);
   if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, T, H, Hkv, scale, causal, st);
+    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, out, lse, B, S, T, H, Hkv, scale, causal,
+                                         st);
   return (int)cudaErrorInvalidValue;
 }

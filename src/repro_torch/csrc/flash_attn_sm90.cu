@@ -50,6 +50,12 @@
 // * Shared memory: 80 KB at hd = 128 (Q 16 KB, two stages of K and V), two
 //   blocks an SM; the dynamic limit is raised once per device at the first
 //   launch, so a launch captured in a graph makes no attribute call.
+// * Row statistics: given an lse buffer (the training path's forward,
+//   kernels/flash_attn/ops.py FlashAttention), each row's natural
+//   log-sum-exp is written from the final running maximum and sum, for the
+//   backward (flash_attn_bwd_sm90.cu) to recompute P; the serving path
+//   passes null and writes nothing more.  The Hopper building blocks this
+//   kernel shares with the backward are in sm90.cuh.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,16 +64,20 @@
 
 #include <atomic>
 
+#include "sm90.cuh"
+#include "smem.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;      // query rows a block (one warpgroup)
 constexpr int BK = 64;      // key rows a tile
 constexpr int NT = 128;     // threads a block
 constexpr int STAGES = 2;   // K/V ring
-constexpr int BOX = 64;     // bf16 values in one 128-byte swizzled row
-constexpr int ROW_BYTES = 128;
 constexpr int KSTEPS = BK / 16;  // wgmma k-steps of the P.V product
+static_assert(BQ == BOX_ROWS && BK == BOX_ROWS, "a tile is one TMA box of rows");
 
 template <int HD>
 struct Smem {
@@ -80,150 +90,6 @@ struct Smem {
   // the barriers, and slack to align the tiles to 1024 bytes (the swizzle's period)
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the barrier's phase `phase` to complete.  A copy that never
-// lands traps after 2 s instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries % 1024 == 1) {
-      if (t0 == 0) t0 = global_ns();
-      else if (global_ns() - t0 > 2000000000ull) asm volatile("trap;\n");
-    }
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(phase)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle
-// (layout type 1); byte offsets in units of 16 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// d (64 x 64, f32) {= or +=} A (64 x 16, K-major, shared) * B (64 x 16, K-major, shared)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, MN-major, shared)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, MN-major, shared)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(d, a, db);
-}
 
 // Copy key tile `tile` of K and of V into ring stage `st` (thread 0 only).
 template <int HD>
@@ -248,7 +114,8 @@ __global__ void __launch_bounds__(NT)
     flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, float* __restrict__ out,
-                           int S, int Tn, int H, int Hkv, float scale_log2, int causal) {
+                           float* __restrict__ lse, int S, int Tn, int H, int Hkv,
+                           float scale_log2, int causal) {
   using L = Smem<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -403,6 +270,12 @@ __global__ void __launch_bounds__(NT)
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {  // natural log-sum-exp of the scaled, masked row
+    const float ln2 = 0.6931471805599453f;
+    float* dst = lse + ((size_t)b * H + h) * S;
+    if (row0 < S) dst[row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * ln2;
+    if (row1 < S) dst[row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * ln2;
+  }
   const size_t row_step = (size_t)H * HD;
   if (row0 < S) {
     float* dst = out + ((size_t)b * S + row0) * row_step + (size_t)h * HD + col_in;
@@ -419,68 +292,13 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// cuTensorMapEncodeTiled is a driver-API function: it is looked up through
-// the runtime, so the library needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// 4-D map of a (batch, seq, heads, hd) bf16 tensor; a box is 64 positions x 64 of hd.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int batch, int seq,
-                int heads, int hd) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)seq * heads * hd * 2};
-  const cuuint32_t box[4] = {BOX, 1, BQ, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Raise the kernel's dynamic shared memory limit once per device, at its
-// first launch there, so that a launch captured into a CUDA graph later
-// makes no attribute call.
 template <int HD>
-cudaError_t allow_smem() {
-  static std::atomic<bool> done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attn_sm90_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
-  if (err == cudaSuccess && dev < 64) done[dev].store(true);
-  return err;
-}
-
-template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int S, int Tn,
-                   int H, int Hkv, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, float* lse, int B,
+                   int S, int Tn, int H, int Hkv, float scale, int causal, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  cudaError_t err = allow_smem<HD>();
+  static std::atomic<bool> done[64];
+  cudaError_t err = repro::allow_smem(flash_attn_sm90_kernel<HD>, Smem<HD>::BYTES, done);
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap;
   if (!encode_map(encode, &qmap, q, B, S, H, HD) || !encode_map(encode, &kmap, k, B, Tn, Hkv, HD) ||
@@ -489,16 +307,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out, int 
   const dim3 grid(B * H, (S + BQ - 1) / BQ, 1);
   const float log2e = 1.4426950408889634f;
   flash_attn_sm90_kernel<HD><<<grid, NT, Smem<HD>::BYTES, stream>>>(
-      qmap, kmap, vmap, out, S, Tn, H, Hkv, scale * log2e, causal);
+      qmap, kmap, vmap, out, lse, S, Tn, H, Hkv, scale * log2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q, k and v with hd 64 or 128; every pointer 16-byte aligned.
+// bfloat16 q, k and v with hd 64 or 128; every pointer 16-byte aligned.  lse,
+// when not null, (B, H, S) float32: each row's natural log-sum-exp of its
+// scaled, masked scores, which the backward (flash_attn_bwd_sm90.cu) reads.
 extern "C" int repro_flash_attn_sm90(const void* q, const void* k, const void* v, float* out,
-                                     int B, int S, int T, int H, int Hkv, int hd, float scale,
-                                     int causal, void* stream) {
+                                     float* lse, int B, int S, int T, int H, int Hkv, int hd,
+                                     float scale, int causal, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (T <= 0 || Hkv <= 0 || H % Hkv != 0 || (S + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
@@ -506,8 +326,8 @@ extern "C" int repro_flash_attn_sm90(const void* q, const void* k, const void* v
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return (int)launch<64>(q, k, v, out, B, S, T, H, Hkv, scale, causal, st);
-    case 128: return (int)launch<128>(q, k, v, out, B, S, T, H, Hkv, scale, causal, st);
+    case 64: return (int)launch<64>(q, k, v, out, lse, B, S, T, H, Hkv, scale, causal, st);
+    case 128: return (int)launch<128>(q, k, v, out, lse, B, S, T, H, Hkv, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

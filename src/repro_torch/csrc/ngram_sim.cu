@@ -45,6 +45,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -144,30 +145,15 @@ __global__ void __launch_bounds__(Tile<BM, BN, TM, TN>::THREADS)
   }
 }
 
-// Raise a tile's dynamic shared memory limit once per device, at its first
-// launch there, so that a launch captured into a CUDA graph later makes no
-// attribute call.
-template <int BM, int BN, int TM, int TN, bool VEC>
-cudaError_t allow_smem() {
-  static std::atomic<bool> done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(ngram_sim_kernel<BM, BN, TM, TN, VEC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile<BM, BN, TM, TN>::SMEM);
-  if (err == cudaSuccess && dev < 64) done[dev].store(true);
-  return err;
-}
-
 template <int BM, int BN, int TM, int TN, bool VEC>
 cudaError_t launch(const float* A, const float* B, float* out, int M, int N, int F,
                    float threshold, cudaStream_t stream) {
   using T = Tile<BM, BN, TM, TN>;
   if ((M + BM - 1) / BM > 65535) return cudaErrorInvalidValue;
   if (T::SMEM > 48 * 1024) {
-    const cudaError_t err = allow_smem<BM, BN, TM, TN, VEC>();
+    static std::atomic<bool> done[64];
+    const cudaError_t err =
+        repro::allow_smem(ngram_sim_kernel<BM, BN, TM, TN, VEC>, T::SMEM, done);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);

@@ -33,8 +33,10 @@ SIGNATURES = {
     "repro_ngram_sim": [_P, _P, _P, _I, _I, _I, _F, _P],
     "repro_mln_score": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_minhash": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "repro_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "repro_flash_attn_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "repro_flash_attn": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "repro_flash_attn_sm90": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    "repro_flash_attn_bwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+    "repro_flash_attn_bwd_sm90": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

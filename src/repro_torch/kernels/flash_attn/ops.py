@@ -23,12 +23,23 @@ Each source says what bounds it on the H100.  CPU tensors go to
 
 Training: on CUDA tensors with grad mode on and an input that requires a
 gradient, the kernel runs inside the autograd Function
-:class:`FlashAttention`, whose backward is
-:func:`attention_backward_blocked` (PyTorch ops in f32, a query block at
-a time).  The reference has no backward kernel: its Pallas kernel has no
-``custom_vjp``, and its models train through XLA's autodiff of blocked
-attention computed outside any kernel and rematerialised a query block at
-a time.  This backward is the port's counterpart of that computation.
+:class:`FlashAttention`.  Its forward also writes each row's log-sum-exp
+(``lse``, (B, H, S) f32; the serving path asks for none), and its
+backward, :func:`attention_backward`, launches the route's backward
+kernels, which recompute the softmax from ``lse``:
+
+* ``"wgmma"``, ``csrc/flash_attn_bwd_sm90.cu``: dK/dV and dQ on the tensor
+  cores, dO, P and dS each split into bf16 hi and lo parts;
+* ``"fma"``, ``csrc/flash_attn_bwd.cu``: the same math in float32 FMAs.
+
+Both write f32 gradients with no atomics (two calls give the same bits),
+cast to the inputs' dtype by the Function.  The reference has no backward
+kernel: its Pallas kernel has no ``custom_vjp``, and its models train
+through XLA's autodiff of attention computed outside any kernel.
+:func:`attention_backward_blocked` (PyTorch ops in f32, a query block at a
+time) is the plain version of that gradient, and :func:`attention_lse_plain`
+of the row statistics; the tests and ``chip_smoke.py`` compare the kernels
+with them, and no path on the card calls them.
 """
 
 from __future__ import annotations
@@ -55,20 +66,35 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
-def attention_plain(q, k, v, scale, *, causal: bool = True):
-    """Plain PyTorch version: the full (S, T) scores in f32."""
+def attention_scores_plain(q, k, scale, *, causal: bool = True):
+    """The scaled, masked scores in f32, (B, Hkv, G, S, T): query head
+    ``kv * G + g`` of KV head ``kv``; masked entries hold ``NEG_INF``."""
     B, S, H, hd = q.shape
     T, hkv = k.shape[1], k.shape[2]
-    g = H // hkv
-    qg = q.reshape(B, S, hkv, g, hd).float()
+    qg = q.reshape(B, S, hkv, H // hkv, hd).float()
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
     if causal:
         rows = torch.arange(S, device=q.device)[:, None]
         cols = torch.arange(T, device=q.device)[None, :]
         s = torch.where(rows >= cols, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def attention_plain(q, k, v, scale, *, causal: bool = True):
+    """Plain PyTorch version: the full (S, T) scores in f32."""
+    B, S, H, hd = q.shape
+    p = torch.softmax(attention_scores_plain(q, k, scale, causal=causal), dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
     return o.reshape(B, S, H * hd)
+
+
+def attention_lse_plain(q, k, v, scale, *, causal: bool = True):
+    """Plain version of the forward's row statistics: each row's natural
+    log-sum-exp of its scaled, masked scores, (B, H, S) f32 (``v`` is not
+    read; the signature is :func:`attention`'s)."""
+    B, S, H, _ = q.shape
+    lse = torch.logsumexp(attention_scores_plain(q, k, scale, causal=causal), dim=-1)
+    return lse.reshape(B, H, S)
 
 
 def attention_backward_blocked(q, k, v, o, do, scale, causal: bool = True,
@@ -112,20 +138,77 @@ def attention_backward_blocked(q, k, v, o, do, scale, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """The CUDA kernel forward, :func:`attention_backward_blocked` backward."""
+    """The CUDA kernels forward (with the rows' log-sum-exp) and backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        o = _launch(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = attention_forward(q, k, v, scale, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = attention_backward_blocked(q, k, v, o, do, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, o, lse, do.float().contiguous(), ctx.scale,
+                                        ctx.causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def attention_forward(q, k, v, scale, *, causal: bool = True):
+    """:func:`attention`'s output and each row's log-sum-exp ((B, H, S) f32),
+    the statistics :func:`attention_backward` reads: one launch of the
+    forward kernel on CUDA tensors, the plain versions on CPU and ``meta``
+    tensors."""
+    if takes_plain(q):
+        return (attention_plain(q, k, v, scale, causal=causal),
+                attention_lse_plain(q, k, v, scale, causal=causal))
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, scale, causal, lse=lse), lse
+
+
+def attention_backward(q, k, v, o, lse, do, scale, causal: bool = True):
+    """dq (B, S, H, hd), dk, dv (B, T, Hkv, hd) in f32 of :func:`attention`,
+    given its output ``o``, the output's gradient ``do`` (both (B, S, H*hd)
+    f32) and the forward's row log-sum-exp ``lse`` (B, H, S).
+
+    CUDA tensors launch the backward kernels of :func:`route`, or raise;
+    CPU and ``meta`` tensors take the plain version,
+    :func:`attention_backward_blocked` on f32 copies (``lse`` unused)."""
+    if takes_plain(q):
+        return attention_backward_blocked(q.float(), k.float(), v.float(), o, do, scale, causal)
+    B, S, H, hd = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    _check(q, k, v)
+    check_operand("o", o, (B, S, H * hd), q.device)
+    check_operand("do", do, (B, S, H * hd), q.device)
+    check_operand("lse", lse, (B, H, S), q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(s, **f32) for s in [(B, S, H, hd), (B, T, hkv, hd), (B, T, hkv, hd)])
+    if B * S * H == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    D = torch.empty((B, H, S), **f32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route(q.dtype, hd) == "wgmma":
+        do_hi, do_lo = (torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=q.device)
+                        for _ in range(2))
+        _aligned(q=q, k=k, v=v, do_hi=do_hi, do_lo=do_lo, dq=dq, dk=dk, dv=dv)
+        rc = build.library().repro_flash_attn_bwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), do_hi.data_ptr(), do_lo.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, hkv, hd, float(scale), int(causal), stream,
+        )
+        build.check("flash_attn backward (wgmma)", rc)
+    else:
+        rc = build.library().repro_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype], stream,
+        )
+        build.check("flash_attn backward", rc)
+    attention.backward_launches += 1
+    return dq, dk, dv
 
 
 def attention(q, k, v, scale, *, causal: bool = True):
@@ -140,8 +223,8 @@ def attention(q, k, v, scale, *, causal: bool = True):
     return _launch(q, k, v, scale, causal)
 
 
-def _launch(q, k, v, scale, causal: bool):
-    """Check the operands and launch the kernel of :func:`route`."""
+def _check(q, k, v) -> None:
+    """Raise unless q, k and v are what the kernels take."""
     B, S, H, hd = q.shape
     T, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
@@ -153,25 +236,40 @@ def _launch(q, k, v, scale, causal: bool):
     check_operand("q", q, (B, S, H, hd), q.device, dtype=q.dtype)
     check_operand("k", k, (B, T, hkv, hd), q.device, dtype=q.dtype)
     check_operand("v", v, (B, T, hkv, hd), q.device, dtype=q.dtype)
+
+
+def _aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned, as the TMA loads need")
+
+
+def _launch(q, k, v, scale, causal: bool, lse=None):
+    """Check the operands and launch the kernel of :func:`route`; with
+    ``lse`` ((B, H, S) f32) the kernel also writes each row's log-sum-exp."""
+    B, S, H, hd = q.shape
+    T, hkv = k.shape[1], k.shape[2]
+    _check(q, k, v)
+    if lse is not None:
+        check_operand("lse", lse, (B, H, S), q.device)
     out = torch.empty((B, S, H * hd), dtype=torch.float32, device=q.device)
     if B * S * H == 0:
         return out
     if T == 0:
         raise ValueError("attention over zero keys")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = 0 if lse is None else lse.data_ptr()
     if route(q.dtype, hd) == "wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} is not 16-byte aligned, as the TMA loads need")
+        _aligned(q=q, k=k, v=v, out=out)
         rc = build.library().repro_flash_attn_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
             B, S, T, H, hkv, hd, float(scale), int(causal), stream,
         )
         build.check("flash_attn (wgmma)", rc)
         attention.wgmma_launches += 1
     else:
         rc = build.library().repro_flash_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
             B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype], stream,
         )
         build.check("flash_attn", rc)
@@ -179,5 +277,6 @@ def _launch(q, k, v, scale, causal: bool):
     return out
 
 
-attention.launches = 0  # every launch, both routes
+attention.launches = 0  # every forward launch, both routes
 attention.wgmma_launches = 0  # the tensor-core route's share
+attention.backward_launches = 0  # every attention_backward launch, both routes

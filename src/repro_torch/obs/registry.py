@@ -163,8 +163,9 @@ class Histogram:
 class MetricsRegistry:
     """Thread-safe instrument store + the span log tracing writes into.
 
-    ``spans`` is an append-only list of span records (written by the
-    reference's ``obs.tracing``, not ported yet), capped at ``max_spans``
+    ``spans`` is an append-only list of span records (written by
+    :mod:`repro_torch.obs.tracing`: each closing span calls
+    :meth:`record_span`), capped at ``max_spans``
     (oldest dropped, ``spans_dropped`` counts them) so a long-lived
     service cannot grow the trace without bound.  ``t0`` anchors the
     Chrome-trace timebase: span timestamps are ``perf_counter`` values,
