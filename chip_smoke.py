@@ -172,7 +172,31 @@
    runs the module (``run_train_launcher``): it must launch ``flash_attn``
    96 times a step on the tensor cores and its backward 48 times, with no
    call of the plain backward.
-14. Train mesh (``train_mesh``): training over ranks with phase train's
+14. Train families (``train_families``): the MoE and MLA families trained
+   at full width (``TRAIN_FAMILIES``): Moonlight-16B-A3B (64 experts top-6,
+   16/16 heads at hd 128, vocabulary 163,840) and MiniCPM3-4B (MLA, q.k 96
+   and v 64 padded to 128, 40 heads).  Each first at 2 layers on the card
+   against the CPU from one seed-0 draw (``check_train_card_vs_cpu``: loss
+   and every gradient within 2e-2, the CPU on the card's MoE routing and
+   every routing difference a near-tie, every attention projection of the
+   family's own tree with a nonzero gradient, ``flash_attn`` 4 times and
+   its backward twice).  Then through ``Trainer`` at its trained depth, the
+   deepest whose step peak stays within ``DRAW_BUDGET_GIB``
+   (``--train-depth`` measures the others): phase train's batch and
+   microbatches, AdamW at ``FAMILY_LR``, 4 steps (with expandable
+   segments), the state after step 2 copied to host memory and a second
+   ``Trainer`` restarted from it to step 4 (losses within 1e-5), the loss
+   falling, ``flash_attn`` layers x 2 x 2 times a step on the tensor cores
+   and its backward half as often (``_require_launches``); each step's ms,
+   tokens/s, gradient norm, peak and launches, the busy share of one more
+   step and a microbatch's forward, backward and AdamW times are printed.
+   Then the family's smoke config through ``Trainer`` on the card, 4 steps
+   with a checkpoint at step 2 and a restart from it (within 1e-5; the
+   checkpoint format; ``FAMILY_SMOKE`` says why not at full width).  Last
+   ``python -m repro_torch.launch.train --arch <arch> --smoke --steps 2``
+   (``run_train_launcher``), held by ``_launcher_counts``; the smoke
+   configs' head dims take the FMA route.
+15. Train mesh (``train_mesh``): training over ranks with phase train's
    model and settings cut to ``MESH_LAYERS`` = 2 of 24 layers (full width).
    First the one-process run: that model on this process, 5 steps (its
    checkpoint at step 4 kept).  Then this script again as 2 ranks
@@ -198,7 +222,7 @@
    to 0 before a run and reads them after.  Prints each rank's step walls,
    collective ms and bytes a step, peak memory, and its busy share of one
    more step under ``torch.profiler``.
-15. Train TP (``train_tp``): tensor parallelism, this script again as 2
+16. Train TP (``train_tp``): tensor parallelism, this script again as 2
    ranks (``--train-tp-worker``) sharing the card (gloo; the functional
    all-gathers DTensor issues are composed from gloo's c10d all-gather,
    ``launch/mesh.py`` ``compose_gloo_cuda_collectives``),
@@ -219,7 +243,7 @@
    run inside ``OpCounter``, each collective synchronized) the collective
    ms, calls and bytes by kind; step 3 runs as a user's would, uncounted
    and unprofiled.
-16. Dry run (``dryrun``), in a process of its own on this machine's CPU,
+17. Dry run (``dryrun``), in a process of its own on this machine's CPU,
    started before phase ``lm`` and read after ``train_tp``:
    ``launch.dryrun.lower_cell`` for ``DRYRUN_CELLS`` and
    ``lower_em_cell`` on the (16, 16) and (2, 16, 16)
@@ -227,9 +251,9 @@
    parameters, tokens a step and model FLOPs equal to the port's own
    functions', and its roofline terms printed at the H100's datasheet
    constants (``launch.roofline``).
-17. Profile: the first 100 MMP evaluations once more under
+18. Profile: the first 100 MMP evaluations once more under
    ``torch.profiler``: the device's busy share and what takes its time.
-18. The card's name and power limit, the kernel list as one JSON line
+19. The card's name and power limit, the kernel list as one JSON line
    (``flash_attn``'s entry with its backward's launches by path and phase
    2's backward times), and last the line ``{"ok": true, "device": {...}}``.
    Each phase's seconds are printed on a line of its own (``[phase]``), and
@@ -764,6 +788,14 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (4, 32, 32, 16, 16, 64, torch.bfloat16, True, None),
         (4, 2048, 2048, 16, 16, 64, torch.bfloat16, True, None),
         (4, 2048, 2048, 8, 8, 64, torch.bfloat16, True, None),  # train_tp: 8 of 16 heads a rank
+        # train_families: the Trainer's microbatch, the card-vs-CPU check and
+        # the launcher's smoke configs, Moonlight and MiniCPM3
+        (4, 2048, 2048, 16, 16, 128, torch.bfloat16, True, None),
+        (4, 2048, 2048, 40, 40, 128, torch.bfloat16, True, (96, 64)),
+        (2, 256, 256, 16, 16, 128, torch.bfloat16, True, None),
+        (2, 256, 256, 40, 40, 128, torch.bfloat16, True, (96, 64)),
+        (8, 256, 256, 4, 4, 16, torch.bfloat16, True, None),
+        (8, 256, 256, 4, 4, 32, torch.bfloat16, True, (24, 16)),
         (2, 256, 256, 16, 16, 64, torch.bfloat16, True, None),
         (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
@@ -1975,6 +2007,16 @@ LM_FAMILIES = [
     ("falcon_mamba_7b", 2, 64),
 ]
 LM_REL_TOL = 2e-2
+# the train_families phase: (arch, layers in the card-vs-CPU check, layers
+# trained), each at full width; a trained depth is the deepest whose measured
+# step peak stays within DRAW_BUDGET_GIB in the script, beside the ~1 GiB the
+# earlier phases keep allocated (MiniCPM3 at 33 layers peaked at 74.25 GiB
+# there, 73.64 alone; ``--train-depth`` measures a depth alone: Moonlight at
+# 3 layers runs out of memory in its first step)
+TRAIN_FAMILIES = [
+    ("moonshot_v1_16b_a3b", 2, 2),
+    ("minicpm3_4b", 2, 32),
+]
 
 
 def _tree_to(tree, device):
@@ -2023,7 +2065,8 @@ def routing_probe(replay: list | None = None):
 
     def route(cfg, router, xt):
         probs, idx, gate, within = original(cfg, router, xt)
-        logits = torch.matmul(xt.float(), router.float())
+        with torch.no_grad():
+            logits = torch.matmul(xt.float(), router.float())
         calls.append(dict(logits=logits.cpu(), probs=probs.cpu(), idx=idx.cpu(),
                           kept=(gate > 0).cpu(), within=within.cpu()))
         if replay is not None:
@@ -2793,18 +2836,40 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
 TRAIN_ARCH = "qwen1_5_0_5b"
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 6, 4, 8, 2048, 2
 TRAIN_RESTART_TOL = 1e-5  # relative: the embedding backward's atomics (index_add_)
+FAMILY_STEPS, FAMILY_CKPT_AT = 4, 2  # the train_families phase's Trainer runs
+# (batch, seq) of the checkpointed restart on each family's smoke config: the
+# launcher's defaults, whose flash_attn shapes phase 2 holds.  The full-width
+# runs restart from a copy in host memory: a checkpoint of that state (f32
+# masters and moments) is 21.7 GB for Moonlight at 2 layers and 28.6 GB for
+# MiniCPM3 at 32, and the card's machine stops a command at 45 GiB of disk
+# writes, much of which the other phases use (PERF.md §6)
+FAMILY_SMOKE = (8, 256)
+# AdamW's first steps move every weight by about lr whatever its gradient, so
+# at these widths every layer turns the hidden state toward the most frequent
+# token's unembedding row at once and that one logit overshoots before later
+# steps pull it back: at phase train's 1e-3 MiniCPM3's loss at 32 layers went
+# 11.58 -> 14.25 over 4 steps, at 1e-4 it rises at steps 2-3 and ends at 8.72;
+# the card follows the CPU there (tests/train_family_probe.py, PERF.md §6)
+FAMILY_LR = 1e-4
 # flash_attn's backward in phase 2, at every shape a training path launches
-# (phase train_mesh's launcher ranks run Qwen1.5-0.5B's smoke config: bf16 at
-# hd 16, the FMA route) and the FMA route's: (label, B, S, T, H, Hkv, hd,
-# dtype, causal, MLA (q.k dim, v dim) padded to hd)
+# (phase train_mesh's launcher ranks run Qwen1.5-0.5B's smoke config, phase
+# train_families' launchers Moonlight's and MiniCPM3's: bf16 at hd 16 and 32,
+# the FMA route) and the FMA route's: (label, B, S, T, H, Hkv, hd, dtype,
+# causal, MLA (q.k dim, v dim) padded to hd)
 FLASH_GRAD_SHAPES = [
     ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, "bf16", True, None),
+    ("Moonlight train", 4, 2048, 2048, 16, 16, 128, "bf16", True, None),
+    ("MiniCPM3 train MLA", 4, 2048, 2048, 40, 40, 128, "bf16", True, (96, 64)),
     ("Yi-6B", 1, 2048, 2048, 32, 4, 128, "bf16", True, None),
     ("Whisper cross", 4, 32, 1500, 16, 16, 64, "bf16", False, None),
     ("MiniCPM3 MLA", 1, 4096, 4096, 40, 40, 128, "bf16", True, (96, 64)),
     ("train card vs CPU", 2, 256, 256, 16, 16, 64, "bf16", True, None),
+    ("Moonlight card vs CPU", 2, 256, 256, 16, 16, 128, "bf16", True, None),
+    ("MiniCPM3 card vs CPU MLA", 2, 256, 256, 40, 40, 128, "bf16", True, (96, 64)),
     ("train_tp", 4, 2048, 2048, 8, 8, 64, "bf16", True, None),
     ("launcher smoke", 4, 256, 256, 4, 4, 16, "bf16", True, None),
+    ("Moonlight launcher smoke", 8, 256, 256, 4, 4, 16, "bf16", True, None),
+    ("MiniCPM3 launcher smoke MLA", 8, 256, 256, 4, 4, 32, "bf16", True, (24, 16)),
     ("fma GQA", 2, 128, 128, 4, 2, 32, "f32", True, None),
     ("fma full", 2, 256, 256, 2, 2, 64, "f32", False, None),
     ("fma ragged S < T", 2, 40, 100, 4, 2, 8, "f32", True, None),
@@ -2970,13 +3035,29 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
         bound_ms=bound_ms, bound_by=bound_by, **unpadded)
 
 
+def _attention_projections(api) -> list[str]:
+    """The attention projections of the model's parameter tree, by state-dict
+    name: every leaf under ``layers/attn`` but its norms (Qwen's wq, wk, wv,
+    wo and biases; MLA's q_down, q_up, kv_down, kv_up and wo), each layer."""
+    attn = api.param_specs()["layers"]["attn"]
+    return [f"layers.{i}.attn.{k}" for i in range(api.cfg.n_layers) for k in sorted(attn)
+            if not k.endswith("norm")]
+
+
 def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
     """The loss and every gradient of ``cfg`` on the card against the CPU,
     from one seed-0 draw (every leaf in f32) carried to both, on one
     ``demo_batch``.  Returns the loss's relative difference, each leaf's
-    max |d| / max |g_cpu|, the largest attention-projection gradients on the
-    card, and the ``flash_attn`` forward and backward launches of the card's
-    loss and backward."""
+    max |d| / max |g_cpu| (computed on ``dev``), the largest gradient of
+    each attention projection on the card (``_attention_projections``,
+    whose count is returned too), the ``flash_attn`` forward and backward
+    launches of the card's loss and backward, and the seconds of each
+    side.  MoE: as in ``lm_card_vs_cpu``, the CPU takes the card's routing
+    (experts, drops, slots; its own gates), since one token routed the
+    other way moves its whole gradient row to another expert and changes
+    every activation downstream of it; both sides' own choices (the
+    forward's and the remat recompute's, a layer each) are compared by
+    ``_routing_agreement``."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -2985,83 +3066,142 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
 
     api = get_model(cfg)
     cpu = torch.device("cpu")
+    t0 = time.perf_counter()
     tree = init_params(in_f32(api.param_specs()), seed=0, device=dev)
     host_tree = _tree_to(tree, cpu)
     data = api.demo_batch(ShapeConfig("t", seq, batch, "train"))
-    out = {}
+    out, routes, seconds = {}, [], {"draw": time.perf_counter() - t0}
     for name, d, t in [("card", dev, tree), ("cpu", cpu, host_tree)]:
+        t0 = time.perf_counter()
         model = api.load(t, trainable=True)
         names, params = zip(*model.named_parameters())
         _zero_counts()
-        loss, _ = api.loss(model, {k: torch.as_tensor(v, device=d) for k, v in data.items()})
-        grads = torch.autograd.grad(loss, params)
-        _sync(d)
+        with routing_probe(replay=routes[0] if routes else None) as calls:
+            loss, _ = api.loss(model, {k: torch.as_tensor(v, device=d) for k, v in data.items()})
+            grads = torch.autograd.grad(loss, params)
+            _sync(d)
         lc = _read_counts()
-        out[name] = (float(loss), {n: g.float().cpu() for n, g in zip(names, grads)},
+        out[name] = (float(loss.detach()), dict(zip(names, grads)),
                      (lc["flash_attn"], lc["flash_attn_backward"]))
-        del model, params, grads, loss
+        routes.append(calls)
+        seconds[name] = time.perf_counter() - t0
+        del model, params, grads, loss, t
     del tree, host_tree
-    _free(dev)
     (card_loss, card_g, launches), (cpu_loss, cpu_g, _) = out["card"], out["cpu"]
-    rel = {n: _rel(card_g[n], cpu_g[n]) for n in cpu_g}
-    proj = {n: float(card_g[n].abs().max()) for n in card_g
-            if ".attn." in n and n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}
+    res = {}
+    t0 = time.perf_counter()
+    if cfg.n_experts:
+        res["routing"] = _routing_agreement(routes[1], routes[0], cfg, 2 * cfg.n_layers)
+    projections = _attention_projections(api)
+    proj = {n: float(card_g[n].abs().max()) for n in projections if n in card_g}
+    rel = {}
+    for n in list(cpu_g):
+        rel[n] = _rel(card_g.pop(n).float(), cpu_g.pop(n).to(dev))
+    seconds["compare"] = time.perf_counter() - t0
+    del out
+    _free(dev)
     return dict(loss=(card_loss, cpu_loss), loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss),
-                rel=rel, proj=proj, launches=launches)
+                rel=rel, proj=proj, n_proj=len(projections), launches=launches,
+                seconds=seconds, **res)
 
 
-def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
-    """LM training on the card: Qwen1.5-0.5B card against CPU at 2 layers,
-    trained through ``Trainer`` with a restart, and the launcher.  Returns
-    the launch counts of the Trainer runs."""
+def check_train_card_vs_cpu(dev, tag: str, cfg) -> None:
+    """``train_card_vs_cpu`` of ``cfg``, printed and held: the loss and every
+    gradient leaf within ``LM_REL_TOL`` (MoE: every routing difference a
+    near-tie), every attention projection's gradient nonzero, and
+    ``flash_attn`` launched twice a layer (forward and recompute) and its
+    backward once."""
+    cmp = train_card_vs_cpu(dev, cfg)
+    seconds = ", ".join(f"{k} {v:.1f}" for k, v in cmp["seconds"].items())
+    worst = max(cmp["rel"], key=cmp["rel"].get)
+    rt = cmp.get("routing")
+    routing = (f"; the CPU on the card's routing: the sides' own routing sets equal "
+               f"{rt['agree']} of {rt['sets']} (token, layer; forward and recompute), experts "
+               f"differ in {rt['differ']}, each with a CPU logit margin within twice its "
+               f"token's router-logit error (largest margin / bound {rt['worst_ratio']:.3g}; "
+               f"{rt['near']} sets lie within their bound); router-logit error up to "
+               f"{rt['router_err']:.3g}" if rt else "")
+    mla = (f"; q_up {cmp['rel'].get('layers.0.attn.q_up', 0):.3g}, kv_up "
+           f"{cmp['rel'].get('layers.0.attn.kv_up', 0):.3g} at layer 0" if cfg.mla else "")
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, card vs CPU (B=2, S=256): loss "
+        f"{cmp['loss'][0]:.6f} / {cmp['loss'][1]:.6f} (relative {cmp['loss_rel']:.3g}); "
+        f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
+        f"{LM_REL_TOL}{mla}{routing}; attention projections' max |g| on the card: smallest "
+        f"{min(cmp['proj'].values()):.3g} ({min(cmp['proj'], key=cmp['proj'].get)}) of "
+        f"{len(cmp['proj'])}; flash_attn launches {cmp['launches'][0]}, backward "
+        f"{cmp['launches'][1]} (s: {seconds})")
+    require(cmp["loss_rel"] <= LM_REL_TOL,
+            f"{cfg.name}: train loss card vs CPU {cmp['loss_rel']:.3g}")
+    bad = {n: e for n, e in cmp["rel"].items() if not e <= LM_REL_TOL}
+    require(not bad, f"{cfg.name}: gradients card vs CPU over {LM_REL_TOL}: {bad}")
+    require(len(cmp["proj"]) == cmp["n_proj"] and all(g > 0 for g in cmp["proj"].values()),
+            f"{cfg.name}: an attention projection has no gradient on the card: {cmp['proj']}")
+    layers = cfg.n_layers
+    require(cmp["launches"] == (2 * layers, layers), f"{cfg.name}: flash_attn launched "
+            f"{cmp['launches']} times (forward, backward) in the {layers}-layer loss and "
+            f"backward, expected {(2 * layers, layers)}: forward and recompute, and one "
+            "backward a layer")
+
+
+def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq: int,
+                       batch: int, micro: int, lr: float = 1e-3,
+                       tensor_cores: bool = True, in_memory: bool = False) -> dict:
+    """``cfg`` trained through ``Trainer`` from a seed-0 draw on ``dev``,
+    AdamW at ``lr`` warmed up over 2 steps: ``steps`` steps with a
+    checkpoint at ``ckpt_at`` (and the Trainer's last), then a restart from
+    a copy of that checkpoint to ``steps``; ``in_memory``: the state after
+    step ``ckpt_at`` is copied to host memory instead, and the restart is a
+    second Trainer whose ``restore_or_init`` returns that copy at step
+    ``ckpt_at`` (nothing is written); ``ckpt_at=None``: the one run, writing
+    nothing.  Each step is timed on the host clock (synchronized, no
+    profiler) with its peak memory, ``flash_attn`` launches and gradient
+    norm, and printed as it ends.  Held: the launches
+    (``_require_launches``; all on the tensor cores, or with
+    ``tensor_cores=False`` none), the loss falling, and the restarted
+    losses within ``TRAIN_RESTART_TOL``.  Returns the records, the launch
+    counts (set to 0 before the runs), the last Trainer and its result."""
     import shutil
     import tempfile
 
     import torch
 
-    from repro_torch.configs.base import get_config
     from repro_torch.data.corpus import CorpusConfig
     from repro_torch.kernels.flash_attn import ops as flash
-    from repro_torch.launch.sharding import default_remat_group
     from repro_torch.models.registry import get_model
-    from repro_torch.train.optimizer import OptConfig, adamw_update
-    from repro_torch.train.train_step import make_train_step, split_microbatches
+    from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    t_phase = time.perf_counter()
-    base_cfg = get_config(TRAIN_ARCH)
-    cmp = train_card_vs_cpu(dev, dataclasses.replace(base_cfg, n_layers=2))
-    worst = max(cmp["rel"], key=cmp["rel"].get)
-    log(f"[train] {base_cfg.name} at 2 layers, card vs CPU (B=2, S=256): loss "
-        f"{cmp['loss'][0]:.6f} / {cmp['loss'][1]:.6f} (relative {cmp['loss_rel']:.3g}); "
-        f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
-        f"{LM_REL_TOL}; attention projections' max |g| on the card: smallest "
-        f"{min(cmp['proj'].values()):.3g} ({min(cmp['proj'], key=cmp['proj'].get)}); "
-        f"flash_attn launches {cmp['launches'][0]}, backward {cmp['launches'][1]}")
-    require(cmp["loss_rel"] <= LM_REL_TOL, f"train loss card vs CPU {cmp['loss_rel']:.3g}")
-    bad = {n: e for n, e in cmp["rel"].items() if not e <= LM_REL_TOL}
-    require(not bad, f"gradients card vs CPU over {LM_REL_TOL}: {bad}")
-    require(len(cmp["proj"]) == 2 * 7 and all(g > 0 for g in cmp["proj"].values()),
-            f"an attention projection has no gradient on the card: {cmp['proj']}")
-    require(cmp["launches"] == (2 * 2, 2), f"flash_attn launched {cmp['launches']} times "
-            "(forward, backward) in the 2-layer loss and backward, expected (4, 2): forward "
-            "and recompute, and one backward a layer")
-
-    n_layers = layers or base_cfg.n_layers
-    cfg = dataclasses.replace(base_cfg, n_layers=n_layers,
-                              remat_group=default_remat_group(n_layers))
     api = get_model(cfg)
     data = CorpusConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
+    opt_cfg = OptConfig(lr=lr, warmup_steps=2)
     root = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
-    per_launch = n_layers * micro * 2  # forward and remat recompute
+    per_launch = cfg.n_layers * micro * 2  # forward and remat recompute
     records: list = []
+    held: dict = {}  # in_memory: the state after step ckpt_at, on the host
 
-    def trainer(ckpt_dir, n):
+    def hold_on_host(model, opt):
+        """Copies of the parameters and both moments in one page-locked
+        buffer (copies to and from pageable memory run at a fraction of the
+        link's rate, PERF.md §6), and the step."""
+        groups = [("params", dict(model.named_parameters())), ("m", opt["m"]), ("v", opt["v"])]
+        buf = torch.empty(sum(x.numel() * x.element_size() for _, xs in groups
+                              for x in xs.values()),
+                          dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        off = 0
+        for k, xs in groups:
+            held[k] = {}
+            for n, x in xs.items():
+                size = x.numel() * x.element_size()
+                held[k][n] = buf[off:off + size].view(x.dtype).view(x.shape)
+                held[k][n].copy_(x.detach(), non_blocking=True)
+                off += size
+        held["step"] = opt["step"].to("cpu", copy=True)
+        _sync(dev)
+
+    def trainer(ckpt_dir, n, restored=False):
         t = Trainer(api, data, opt_cfg, TrainerConfig(
-            steps=n, ckpt_every=TRAIN_CKPT_AT, log_every=1, microbatches=micro,
-            ckpt_dir=str(ckpt_dir), keep_ckpts=3), device=dev)
+            steps=n, ckpt_every=ckpt_at or n, log_every=1, microbatches=micro,
+            ckpt_dir=ckpt_dir and str(ckpt_dir), keep_ckpts=3), device=dev)
         step_fn = t.step_fn
 
         def timed(model, opt, b):
@@ -3074,85 +3214,163 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
             out = step_fn(model, opt, b)
             loss = float(out[2]["loss"])
             _sync(dev)
-            records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
-                                launches=flash.attention.launches - before[0],
-                                backward=flash.attention.backward_launches - before[1],
-                                peak=torch.cuda.max_memory_allocated(dev)
-                                if dev.type == "cuda" else 0))
+            r = dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                     grad_norm=float(out[2]["grad_norm"]),
+                     launches=flash.attention.launches - before[0],
+                     backward=flash.attention.backward_launches - before[1],
+                     peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+            records.append(r)
+            i = len(records) - 1
+            step = i + 1 if i < steps else ckpt_at + i - steps + 1
+            log(f"[{tag}] {'run' if i < steps else 'restart'} step {step}: loss "
+                f"{r['loss']:.6f}, gradient norm {r['grad_norm']:.4g}, {r['ms']:.1f} ms, "
+                f"{batch * seq / r['ms'] * 1e3:.0f} tokens/s, peak {r['peak'] / 2**30:.2f} GiB, "
+                f"flash_attn {r['launches']}, backward {r['backward']}")
+            if in_memory and i + 1 == ckpt_at:
+                t1 = time.perf_counter()
+                hold_on_host(out[0], out[1])
+                held["s"] = time.perf_counter() - t1
             return out
+
+        def from_host():
+            """The held state on ``dev`` at step ``ckpt_at``, as a restore
+            would place it: the model drawn, then overwritten."""
+            state, _ = t.init_state()
+            with torch.no_grad():
+                for n, p in state["params"].named_parameters():
+                    p.copy_(held["params"][n], non_blocking=True)
+            state["opt"] = {k: {n: x.to(dev, non_blocking=True) for n, x in held[k].items()}
+                            for k in ("m", "v")}
+            state["opt"]["step"] = held["step"].to(dev)
+            _sync(dev)
+            return state, ckpt_at
         t.step_fn = timed
+        if restored:
+            t.restore_or_init = from_host
         return t
 
     try:
         _zero_counts()
-        full = trainer(root / "full", steps).run()
+        t0 = time.perf_counter()
+        last_t = trainer(root / "full" if ckpt_at and not in_memory else None, steps)
+        last = full = last_t.run()
+        first_s = time.perf_counter() - t0
         full_losses, full_wall = full["losses"], full["wall_time_s"]
-        del full  # the first run's model and moments, before the restart's
-        _free(dev)
-        restart_dir = root / "restart"
-        shutil.copytree(root / "full" / f"step_{TRAIN_CKPT_AT:09d}",
-                        restart_dir / f"step_{TRAIN_CKPT_AT:09d}", copy_function=os.link)
-        shutil.rmtree(root / "full")
-        resumed_t = trainer(restart_dir, steps)
-        resumed = resumed_t.run()
+        if ckpt_at:
+            del last, full  # the first run's model and moments, before the restart's
+            _free(dev)
+            if in_memory:
+                last_t = trainer(None, steps, restored=True)
+            else:
+                restart_dir = root / "restart"
+                shutil.copytree(root / "full" / f"step_{ckpt_at:09d}",
+                                restart_dir / f"step_{ckpt_at:09d}", copy_function=os.link)
+                shutil.rmtree(root / "full")
+                last_t = trainer(restart_dir, steps)
+            t0 = time.perf_counter()
+            last = last_t.run()
+            restart_s = time.perf_counter() - t0
         launches = _read_counts()
         wgmma = _wrappers()["flash_attn"].wgmma_launches
-        for i, r in enumerate(records):
-            step = i + 1 if i < steps else TRAIN_CKPT_AT + i - steps + 1
-            log(f"[train] {'run' if i < steps else 'restart'} step {step}: loss {r['loss']:.6f}, "
-                f"{r['ms']:.1f} ms, {batch * seq / r['ms'] * 1e3:.0f} tokens/s, peak "
-                f"{r['peak'] / 2**30:.2f} GiB, flash_attn {r['launches']}, backward "
-                f"{r['backward']}")
-        _require_launches("train", records, launches, per_launch, len(records), wgmma)
-        losses = [x for _, x in full_losses]
-        require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-        again = dict(resumed["losses"])
-        diffs = {s: abs(again[s] - x) / abs(x) for s, x in full_losses if s > TRAIN_CKPT_AT}
-        require(sorted(again) == list(range(TRAIN_CKPT_AT + 1, steps + 1))
-                and max(diffs.values()) <= TRAIN_RESTART_TOL,
-                f"restarted losses differ: {again} vs {full_losses}")
-        log(f"[train] {cfg.name}, {n_layers} layers, remat_group {cfg.remat_group}, batch "
-            f"{batch} x {seq} in {micro} microbatches: losses {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f} over {steps} steps ({full_wall:.1f} s, checkpoint saves "
-            f"included); restart at step {TRAIN_CKPT_AT}: steps {sorted(again)}, largest "
-            f"relative loss difference from the uninterrupted run {max(diffs.values()):.3g} "
-            f"(limit {TRAIN_RESTART_TOL}: deterministic algorithms are not set, so the "
-            f"embedding backward's index_add_ atomics may move the last bits)")
-
-        # not counted: the device's busy share of one more step under
-        # torch.profiler, and how a microbatch's step splits between
-        # forward, backward (with the remat recompute) and AdamW
-        model, opt = resumed["params"], resumed["opt"]
-        step_fn = make_train_step(api, opt_cfg, microbatches=micro)
-        split = {k: torch.as_tensor(v, device=dev) for k, v in
-                 split_microbatches(resumed_t.data.batch(steps), micro).items()}
-        log(f"[train] one more step under torch.profiler: device busy "
-            f"{_device_busy(dev, lambda: step_fn(model, opt, split))}")
-        b = {k: torch.as_tensor(v, device=dev) for k, v in
-             resumed_t.data.batch(steps).items()}
-        mb = {k: v[: batch // micro] for k, v in b.items()}
-        params = dict(model.named_parameters())
-        _sync(dev)
-        t0 = time.perf_counter()
-        loss, _ = api.loss(model, mb)
-        _sync(dev)
-        t1 = time.perf_counter()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        _sync(dev)
-        t2 = time.perf_counter()
-        adamw_update(opt_cfg, params, dict(zip(params, grads)), opt)
-        _sync(dev)
-        t3 = time.perf_counter()
-        log(f"[train] one microbatch of "
-            f"{batch // micro} x {seq}: forward {(t1 - t0) * 1e3:.1f} ms, backward (remat "
-            f"recompute included) {(t2 - t1) * 1e3:.1f} ms; AdamW over "
-            f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters "
-            f"{(t3 - t2) * 1e3:.1f} ms (host clock, synchronized)")
-        del model, opt, grads, params, resumed, resumed_t
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    _require_launches(f"{tag} {cfg.name}", records, launches, per_launch, len(records),
+                      wgmma if tensor_cores else None)
+    require(tensor_cores or wgmma == 0,
+            f"{tag} {cfg.name}: {wgmma} flash_attn launches on the tensor cores, expected none")
+    losses = [x for _, x in full_losses]
+    require(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
+    summary = (f"[{tag}] {cfg.name}, {cfg.n_layers} layers, remat_group {cfg.remat_group}, "
+               f"batch {batch} x {seq} in {micro} microbatch(es), lr {lr}: losses "
+               f"{losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps ({full_wall:.1f} s; "
+               f"{first_s:.1f} s with the draw" + (", checkpoint saves included"
+                                                  if ckpt_at and not in_memory else "") + ")")
+    if ckpt_at:
+        again = dict(last["losses"])
+        diffs = {s: abs(again[s] - x) / abs(x) for s, x in full_losses if s > ckpt_at}
+        require(sorted(again) == list(range(ckpt_at + 1, steps + 1))
+                and max(diffs.values()) <= TRAIN_RESTART_TOL,
+                f"{cfg.name}: restarted losses differ: {again} vs {full_losses}")
+        how = (f"from a copy in host memory ({held.pop('s'):.1f} s to copy; {restart_s:.1f} s: "
+               "draw, load, steps" if in_memory else f"({restart_s:.1f} s: restore, steps, save")
+        held.clear()
+        release = getattr(torch._C, "_host_emptyCache", None)  # the page-locked buffer
+        if in_memory and release is not None and dev.type == "cuda":
+            release()
+        summary += (f"; restart at step {ckpt_at} {how}): "
+                    f"steps {sorted(again)}, largest relative loss difference from the "
+                    f"uninterrupted run {max(diffs.values()):.3g} (limit {TRAIN_RESTART_TOL}: "
+                    f"deterministic algorithms are not set, so the embedding backward's "
+                    f"index_add_ atomics may move the last bits)")
+    log(summary)
+    return dict(records=records, launches=launches, api=api, opt_cfg=opt_cfg,
+                trainer=last_t, resumed=last)
+
+
+def train_step_split(dev, tag: str, run: dict, step: int, micro: int) -> None:
+    """Not counted: the device's busy share of one more step under
+    torch.profiler, and how a microbatch's step splits between forward,
+    backward (with the remat recompute) and AdamW (host clock,
+    synchronized), on the state ``train_with_restart`` returns."""
+    import torch
+
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import make_train_step, split_microbatches
+
+    api, opt_cfg, data = run["api"], run["opt_cfg"], run["trainer"].data
+    model, opt = run["resumed"]["params"], run["resumed"]["opt"]
+    step_fn = make_train_step(api, opt_cfg, microbatches=micro)
+    split = {k: torch.as_tensor(v, device=dev) for k, v in
+             split_microbatches(data.batch(step), micro).items()}
+    log(f"[{tag}] one more step under torch.profiler: device busy "
+        f"{_device_busy(dev, lambda: step_fn(model, opt, split))}")
+    del split
+    b = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(step).items()}
+    rows = b["tokens"].shape[0] // micro
+    mb = {k: v[:rows] for k, v in b.items()}
+    params = dict(model.named_parameters())
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, _ = api.loss(model, mb)
+    _sync(dev)
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    _sync(dev)
+    t2 = time.perf_counter()
+    adamw_update(opt_cfg, params, dict(zip(params, grads)), opt)
+    _sync(dev)
+    t3 = time.perf_counter()
+    log(f"[{tag}] one microbatch of "
+        f"{rows} x {b['tokens'].shape[1]}: forward {(t1 - t0) * 1e3:.1f} ms, backward (remat "
+        f"recompute included) {(t2 - t1) * 1e3:.1f} ms; AdamW over "
+        f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters "
+        f"{(t3 - t2) * 1e3:.1f} ms (host clock, synchronized)")
+
+
+def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
+    """LM training on the card: Qwen1.5-0.5B card against CPU at 2 layers,
+    trained through ``Trainer`` with a restart, and the launcher.  Returns
+    the launch counts of the Trainer runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.sharding import default_remat_group
+
+    t_phase = time.perf_counter()
+    base_cfg = get_config(TRAIN_ARCH)
+    check_train_card_vs_cpu(dev, "train", dataclasses.replace(base_cfg, n_layers=2))
+
+    n_layers = layers or base_cfg.n_layers
+    cfg = dataclasses.replace(base_cfg, n_layers=n_layers,
+                              remat_group=default_remat_group(n_layers))
+    try:
+        run = train_with_restart(dev, "train", cfg, steps, TRAIN_CKPT_AT, seq, batch, micro)
+        launches = run["launches"]
+        train_step_split(dev, "train", run, steps, micro)
+        del run
+    finally:
         _free(dev)
 
+    per_launch = n_layers * micro * 2
     args = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(batch), "--seq", str(seq),
             "--microbatches", str(micro), *(["--device", "cpu"] if dev.type != "cuda" else [])]
     t0 = time.perf_counter()
@@ -3165,6 +3383,109 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     log(f"[train] launches in the Trainer runs and the launcher: {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _kernel_head_dim(cfg) -> int:
+    """The head dim ``flash_attn`` takes for ``cfg``: MLA's q.k and v dims
+    padded to the smallest of the kernel's that holds both
+    (``layers.attend``)."""
+    from repro_torch.kernels.flash_attn import ops as flash
+
+    hq = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.mla else cfg.head_dim
+    hv = cfg.v_head_dim if cfg.mla else cfg.head_dim
+    return min(d for d in flash.HEAD_DIMS if d >= max(hq, hv))
+
+
+@contextlib.contextmanager
+def expandable_segments(dev):
+    """The CUDA caching allocator with expandable segments (what
+    ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` sets) inside the
+    block: a training step near the card's memory after other work.  Without
+    it Moonlight's first full-width step, after the card-vs-CPU check, found
+    its cached memory split by live blocks and no block for its 5 GiB
+    logits, though the step alone fits."""
+    import torch
+
+    if dev.type != "cuda":
+        yield
+        return
+    configure = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                 or torch.cuda.memory._set_allocator_settings)
+    _free(dev)
+    configure("expandable_segments:True")
+    try:
+        yield
+    finally:
+        _free(dev)
+        configure("expandable_segments:False")
+
+
+def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
+                         batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO) -> dict:
+    """The MoE and MLA families trained on the card (``TRAIN_FAMILIES``):
+    each at full width against the CPU at a cut depth
+    (``check_train_card_vs_cpu``); through ``Trainer`` at full width and
+    its trained depth for ``steps`` steps, its step peak within
+    ``DRAW_BUDGET_GIB``, restarted from the state after ``FAMILY_CKPT_AT``
+    held in host memory; its smoke config through ``Trainer`` with a
+    checkpoint at ``FAMILY_CKPT_AT`` and a restart from it (the checkpoint
+    format; the full-width state's checkpoints would pass the disk the
+    card's machine allows a run, see ``FAMILY_SMOKE``); then ``python -m
+    repro_torch.launch.train --arch <arch> --smoke --steps 2``.  Returns the
+    launch counts of the Trainer runs and the launchers."""
+    import torch
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.launch.sharding import default_remat_group
+
+    t_phase = time.perf_counter()
+    total = _no_counts()
+    if dev.type == "cuda":
+        log(f"[train_families] allocated on the card before the phase: "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    for arch, cmp_layers, train_layers in TRAIN_FAMILIES:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        _free(dev)
+        check_train_card_vs_cpu(dev, "train_families",
+                                dataclasses.replace(full, n_layers=cmp_layers))
+        _free(dev)
+        cfg = dataclasses.replace(full, n_layers=train_layers,
+                                  remat_group=default_remat_group(train_layers))
+        with expandable_segments(dev):
+            run = train_with_restart(dev, "train_families", cfg, steps, FAMILY_CKPT_AT, seq,
+                                     batch, micro, lr=FAMILY_LR, in_memory=True)
+            peak = max(r["peak"] for r in run["records"]) / 2**30
+            log(f"[train_families] {full.name} trained at {train_layers} of {full.n_layers} "
+                f"layers: step peak {peak:.2f} GiB (limit {DRAW_BUDGET_GIB})")
+            require(peak <= DRAW_BUDGET_GIB,
+                    f"{arch}: step peak {peak:.2f} GiB over {DRAW_BUDGET_GIB}")
+            train_step_split(dev, "train_families", run, steps, micro)
+            _count_into(total, run["launches"])
+            del run
+
+        smoke = smoke_config(arch)
+        smoke = dataclasses.replace(smoke, remat_group=default_remat_group(smoke.n_layers))
+        tensor_cores = flash.route(torch.bfloat16, _kernel_head_dim(smoke)) == "wgmma"
+        s_batch, s_seq = FAMILY_SMOKE
+        run = train_with_restart(dev, "train_families", smoke, steps, FAMILY_CKPT_AT, s_seq,
+                                 s_batch, 1, tensor_cores=tensor_cores)
+        _count_into(total, run["launches"])
+        del run
+        args = ["--arch", arch, "--smoke", "--steps", "2",
+                *(["--device", "cpu"] if dev.type != "cuda" else [])]
+        t0 = time.perf_counter()
+        lines, counts = run_train_launcher(args)
+        lc = _launcher_counts(counts, f"{arch} launcher", smoke.n_layers * 2, 2, tensor_cores)
+        log(f"[train_families] python -m repro_torch.launch.train {' '.join(args)} (in this "
+            f"process): {time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+        _count_into(total, lc)
+        _free(dev)
+        log(f"[train_families] {full.name}: {time.perf_counter() - t_arch:.1f} s in all")
+    log(f"[train_families] launches in the Trainer runs and the launchers: {total}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def run_train_launcher(args: list[str]) -> tuple[list[str], dict]:
@@ -4010,6 +4331,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--train-tp-worker", metavar="SPEC",
                     help="a rank of the train_tp phase (REPRO_SHARD_* set by the phase, its "
                          "settings in the JSON file SPEC); prints no result line")
+    ap.add_argument("--train-depth", action="append", metavar="ARCH:L[,L]",
+                    help="train ARCH at full width and each depth L as phase train_families "
+                         "does, without a restart, and print each step's loss, ms and peak "
+                         "memory; prints no result line")
     ap.add_argument("--dryrun-worker", metavar="DIR",
                     help="the dryrun phase's process: write its records to DIR; prints no "
                          "result line")
@@ -4048,6 +4373,23 @@ def main(argv: list[str] | None = None) -> int:
         return out
 
     phase("build", phase_build, args.ptxas_verbose)
+    if args.train_depth:
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.sharding import default_remat_group
+
+        for spec in args.train_depth:
+            arch, depths = spec.split(":")
+            for n in map(int, depths.split(",")):
+                cfg = dataclasses.replace(get_config(arch), n_layers=n,
+                                          remat_group=default_remat_group(n))
+                try:
+                    with expandable_segments(dev):
+                        train_with_restart(dev, "train_depth", cfg, FAMILY_STEPS, None,
+                                           TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, lr=FAMILY_LR)
+                except torch.OutOfMemoryError:
+                    log(f"[train_depth] {cfg.name} at {n} layers: out of memory")
+                _free(dev)
+        return 0
     if args.only and not args.kernels_only:
         ap.error("--only needs --kernels-only")
     _count_blocked()
@@ -4067,6 +4409,7 @@ def main(argv: list[str] | None = None) -> int:
     lm_launches = phase("lm", phase_lm, dev)
     families_launches = phase("lm_families", phase_lm_families, dev)
     train_launches = phase("train", phase_train, dev)
+    train_families_launches = phase("train_families", phase_train_families, dev)
     mesh_launches, ref = phase("train_mesh", phase_train_mesh, dev)
     tp_launches = phase("train_tp", phase_train_tp, dev, ref)
     phase("dryrun", phase_dryrun, dry)
@@ -4086,6 +4429,7 @@ def main(argv: list[str] | None = None) -> int:
              "stream": stream_launches, "matchers": matchers_launches, "dedup": dedup_launches,
              "serving": serving_launches, "shard": shard_launches, "lm": lm_launches,
              "lm_families": families_launches, "train": train_launches,
+             "train_families": train_families_launches,
              "train_mesh": mesh_launches, "train_tp": tp_launches}
     kernels = []
     for name, meta in KERNELS.items():

@@ -191,6 +191,7 @@ class Trainer:
     def run(self) -> dict:
         state, start = self.restore_or_init()
         params, opt = state["params"], state["opt"]
+        del state  # else the first moments stay alive beside every step's new ones
         losses, digests = [], []
         micro = self.cfg.microbatches
         t0 = time.perf_counter()
