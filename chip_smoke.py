@@ -9,7 +9,9 @@
    at the shapes the main paths give it, with its time, the plain version's,
    a library call's where one computes the same function, and the bound
    from bytes and operations; ``flash_attn``'s backward at every shape a
-   training path launches (``FLASH_GRAD_SHAPES``, ``flash_grad_row``).
+   training path launches (``FLASH_GRAD_SHAPES``, ``flash_grad_row``), and
+   each of its tensor-core instances' blocks per SM, registers, shared bytes
+   and spills (``flash_bwd_instances``).
 3. Pipeline: ``repro_torch.core.pipeline.resolve`` for nomp, smp and mmp on
    the HEPTH-like corpus ``SynthConfig.hepth(scale=1.0, seed=7)`` on CUDA,
    then the MMP fixpoint scored with ``MLNMatcher.score``.  The kernels'
@@ -132,8 +134,8 @@
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
    through an ``Engine`` of batch 1.  Logits finite, every request its
    tokens, and ``flash_attn`` launched exactly layers x prefills times, all
-   on the tensor-core route (MiniCPM3's q.k dim 96 and v dim 64 padded to
-   128), and 0 times for Falcon-Mamba.  Prints prefill and decode ms,
+   on the tensor-core route (the forward takes MiniCPM3's q.k dim 96 and v
+   dim 64 padded to 128), and 0 times for Falcon-Mamba.  Prints prefill and decode ms,
    tokens/s, peak memory and the busy share of one more batch run.  Then the
    decode-only families (``LM_DECODE_ONLY``), which have no prefill in the
    reference: ``launch.serve`` must exit with "has no prefill path", and the
@@ -175,7 +177,8 @@
 14. Train families (``train_families``): the MoE and MLA families trained
    at full width (``TRAIN_FAMILIES``): Moonlight-16B-A3B (64 experts top-6,
    16/16 heads at hd 128, vocabulary 163,840) and MiniCPM3-4B (MLA, q.k 96
-   and v 64 padded to 128, 40 heads).  Each first at 2 layers on the card
+   and v 64, 40 heads: the forward padded to 128, every backward launch on
+   the tensor-core backward's unpadded (96, 64) instance).  Each first at 2 layers on the card
    against the CPU from one seed-0 draw (``check_train_card_vs_cpu``: loss
    and every gradient within 2e-2, the CPU on the card's MoE routing and
    every routing difference a near-tie, every attention projection of the
@@ -846,6 +849,8 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
                 f"flash_attn at hd={hd}, {dtype} did not take the {route} route")
 
     # the backward at every shape a training path launches, and the FMA route's
+    if wanted("flash_attn") and dev.type == "cuda":
+        flash_bwd_instances()
     for shape in FLASH_GRAD_SHAPES if wanted("flash_attn") else []:
         r = flash_grad_row(dev, *shape)
         log(f"[kernels] flash_attn backward {r['shape']} ok  vs autograd of attention_plain "
@@ -854,11 +859,34 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
             + f" (limit {FLASH_GRAD_TOL}); lse max |d| {r['lse_err']:.3g}; two calls equal"
             f"  kernel_ms={r['ms']:.4f} (eager call {r['call_ms']:.4f})"
             f"  blocked_ms={r['plain_ms']:.4f} (eager)  sdpa_backward_ms={r['library_ms']:.4f}"
-            f" (eager)  bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
-            + (f"  unpadded_bound_ms={r['unpadded_bound_ms']:.5f}"
-               if "unpadded_bound_ms" in r else ""))
+            f" (eager, padded inputs)  bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+            + (f"  padded_bound_ms={r['padded_bound_ms']:.5f}"
+               if "padded_bound_ms" in r else ""))
         rows.append(r)
     return rows
+
+
+def flash_bwd_instances() -> None:
+    """One line for each kernel of each instance of the tensor-core backward
+    (``csrc/flash_attn_bwd_sm90.cu``): warpgroups a block, and its blocks per
+    SM, registers, shared bytes and spilled bytes as the card's runtime gives
+    them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaFuncGetAttributes``)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    rows = (ctypes.c_int * 8 * 9)()
+    n = build.library().repro_flash_attn_bwd_sm90_instances(ctypes.addressof(rows), 9)
+    require(n > 0, f"flash_attn backward instances: CUDA error {-n}")
+    kinds = ("dK/dV (fp16 copies of K, V)", "dQ (fp16 copies of K, V)",
+             "dQ (K, V converted in shared memory)", "dK/dV (K, V converted in shared memory)")
+    for r in range(max(n, 0)):
+        hq, hv, which, wgs, blocks, regs, smem, local = rows[r]
+        log(f"[kernels] flash_attn backward instance ({hq}, {hv}) {kinds[which]}: {wgs} "
+            f"warpgroup(s) a block, {blocks} block(s) per SM, {regs} registers a thread, "
+            f"{smem} shared bytes a block, {local} spilled bytes a thread")
+        require(blocks >= 1, f"flash_attn backward ({hq}, {hv}): no block fits an SM")
 
 
 def _same_packed(a, b) -> bool:
@@ -2855,7 +2883,9 @@ FAMILY_LR = 1e-4
 # (phase train_mesh's launcher ranks run Qwen1.5-0.5B's smoke config, phase
 # train_families' launchers Moonlight's and MiniCPM3's: bf16 at hd 16 and 32,
 # the FMA route) and the FMA route's: (label, B, S, T, H, Hkv, hd, dtype,
-# causal, MLA (q.k dim, v dim) padded to hd)
+# causal, MLA (q.k dim, v dim)); hd is the forward's, MLA's dims padded to
+# it (the tensor-core backward takes 96/64 unpadded, the FMA one 24/16
+# padded to 32)
 FLASH_GRAD_SHAPES = [
     ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, "bf16", True, None),
     ("Moonlight train", 4, 2048, 2048, 16, 16, 128, "bf16", True, None),
@@ -2922,16 +2952,20 @@ def _blocked_calls() -> int:
 
 def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
     """``flash_attn``'s backward kernel at one shape against its plain
-    versions on the card.  On the inputs the kernel takes (MLA: q, k, v
-    zero-padded to hd as ``layers.attend`` pads them): the forward's ``lse``
-    against ``attention_lse_plain`` (max |d| within ``FLASH_GRAD_TOL``); two
-    calls of ``attention_backward`` equal bit for bit; its f32 dq, dk, dv
-    within ``FLASH_GRAD_TOL`` (max |d| / max |ref|) of autograd of
-    ``attention_plain`` on f32 copies of the unpadded inputs and of
+    versions on the card.  On the inputs the training path sends the
+    wrappers (MLA: q, k, v at their own dims, which the tensor-core
+    backward's (96, 64) instance takes unpadded and the FMA route pads to
+    hd): the forward's ``lse`` against ``attention_lse_plain`` (max |d|
+    within ``FLASH_GRAD_TOL``); two calls of ``attention_backward`` equal
+    bit for bit (on the native instance where MLA's dims have one); its f32
+    dq, dk, dv within ``FLASH_GRAD_TOL`` (max |d| / max |ref|) of autograd
+    of ``attention_plain`` on f32 copies of the inputs and of
     ``attention_backward_blocked``; and the autograd Function's gradients
     (through ``layers.attend`` for MLA) equal the kernel's cast to the
-    inputs' dtype.  Then the kernel, the blocked backward and SDPA's
-    backward are timed on the same input, beside the bound."""
+    inputs' dtype.  Then the kernel and the blocked backward are timed on
+    the same inputs, SDPA's backward on them zero-padded to hd (its time
+    like for like with the rows of earlier runs), beside the bound of the
+    unpadded work."""
     import torch
     import torch.nn.functional as F
 
@@ -2946,34 +2980,32 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
                for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
     do = torch.as_tensor(rng.standard_normal((B, S, H * hv)).astype(np.float32), device=dev)
     scale = 1.0 / np.sqrt(hq)
-    qp, kp, vp = (F.pad(t, (0, hd - t.shape[-1])).contiguous() for t in (q, k, v))
-    dop = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).reshape(B, S, H * hd).contiguous()
+    native = mla is not None and flash.route(dt, hq, hv) == "wgmma"
 
     # the forward's row statistics and the kernel's f32 gradients, twice
-    o, lse = flash.attention_forward(qp, kp, vp, scale, causal=causal)
+    o, lse = flash.attention_forward(q, k, v, scale, causal=causal)
     lse_err = float((lse.double() - flash.attention_lse_plain(
-        qp, kp, vp, scale, causal=causal).double()).abs().max())
+        q, k, v, scale, causal=causal).double()).abs().max())
     require(lse_err <= FLASH_GRAD_TOL, f"{label}: lse differs from the plain version's by "
             f"{lse_err:.3g} > {FLASH_GRAD_TOL}")
     before = flash.attention.backward_launches
-    got = flash.attention_backward(qp, kp, vp, o, lse, dop, scale, causal)
-    again = flash.attention_backward(qp, kp, vp, o, lse, dop, scale, causal)
+    mla_before = flash.attention.mla_backward_launches
+    got = flash.attention_backward(q, k, v, o, lse, do, scale, causal)
+    again = flash.attention_backward(q, k, v, o, lse, do, scale, causal)
     require(flash.attention.backward_launches == before + 2,
             f"{label}: the backward kernel did not launch")
+    require(flash.attention.mla_backward_launches == mla_before + (2 if native else 0),
+            f"{label}: the backward did not take the (96, 64) instance on unpadded inputs")
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"{label}: two backward calls on one input differ")
-    got = [g[..., :t.shape[-1]] for g, t in zip(got, (q, k, v))]
 
     # the plain versions: autograd of attention_plain on f32 copies of the
-    # unpadded inputs, and the blocked backward on the padded ones
+    # inputs, and the blocked backward
     q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
-    op = flash.attention_plain(*(F.pad(t, (0, hd - t.shape[-1])) for t in (q32, k32, v32)),
-                               scale, causal=causal)
-    want = torch.autograd.grad(op.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv),
+    want = torch.autograd.grad(flash.attention_plain(q32, k32, v32, scale, causal=causal),
                                (q32, k32, v32), do)
-    blocked = flash.attention_backward_blocked(qp.float(), kp.float(), vp.float(), o, dop,
-                                               scale, causal)
-    blocked = [g[..., :t.shape[-1]] for g, t in zip(blocked, (q, k, v))]
+    blocked = flash.attention_backward_blocked(q.float(), k.float(), v.float(), o, do, scale,
+                                               causal)
     errs, errs_blocked = {}, {}
     for name, g, w, bl in zip("qkv", got, want, blocked):
         errs[f"d{name}"], errs_blocked[f"d{name}"] = _rel(g, w), _rel(g, bl)
@@ -2982,7 +3014,7 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
                 f"from the blocked backward's by {errs_blocked[f'd{name}']:.3g} "
                 f"(limit {FLASH_GRAD_TOL})")
     max_abs = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-    del want, blocked, q32, k32, v32, op
+    del want, blocked, q32, k32, v32
 
     # the autograd Function on the same inputs gives the kernel's gradients in dt
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -3001,38 +3033,41 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
     del out, fn_grads, qg, kg, vg, got, again
     _free(dev)
 
-    # times on the input the kernel takes
+    # times: the kernel and the blocked backward on the inputs the path
+    # sends, SDPA's backward on them zero-padded to hd
+    qp, kp, vp = (F.pad(t, (0, hd - t.shape[-1])).contiguous() for t in (q, k, v))
     st = [t.transpose(1, 2).detach().requires_grad_() for t in (qp, kp, vp)]
     so = F.scaled_dot_product_attention(*st, is_causal=causal, scale=scale, enable_gqa=True)
-    sdo = dop.reshape(B, S, H, hd).transpose(1, 2).to(dt)
+    sdo = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).transpose(1, 2).to(dt)
     iters = 10 if S * T > 1 << 20 else 50
-    ms, call_ms = time_ms(lambda: flash.attention_backward(qp, kp, vp, o, lse, dop, scale,
-                                                           causal), iters)
+    ms, call_ms = time_ms(lambda: flash.attention_backward(q, k, v, o, lse, do, scale, causal),
+                          iters)
     blocked_ms = eager_ms(lambda: flash.attention_backward_blocked(
-        qp.float(), kp.float(), vp.float(), o, dop, scale, causal))
+        q.float(), k.float(), v.float(), o, do, scale, causal))
     sdpa_ms = eager_ms(lambda: torch.autograd.grad(so, st, sdo, retain_graph=True))
     pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
-    esize = qp.element_size()
-    io = esize * (B * S * H * hd + 2 * B * T * hkv * hd)
-    # reads q, k, v, o and dO; writes dq, dk, dv; five products of 2 hd
-    # flops a (row, col) pair: scores, dV, dP, dQ, dK
+    esize = q.element_size()
     peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-    bound_ms, bound_by = bound(io + 2 * 4 * B * S * H * hd + io, 10 * B * H * hd * pairs, peak)
-    unpadded = {}
-    if mla is not None:  # the same work before padding: scores, dQ, dK over hq; dV, dP over hv
-        io_u = esize * (B * S * H * hq + B * T * hkv * (hq + hv))
-        unpadded["unpadded_bound_ms"] = bound(io_u + 2 * 4 * B * S * H * hv + io_u,
-                                              2 * B * H * pairs * (3 * hq + 2 * hv), peak)[0]
-    del q, k, v, qp, kp, vp, o, lse, do, dop, st, so, sdo
+
+    def work(a, b):
+        """Reads q, k, v, o and dO, writes dq, dk, dv; five products a (row,
+        col) pair: scores, dQ, dK of 2 a flops, dV and dP of 2 b."""
+        io = esize * (B * S * H * a + B * T * hkv * (a + b))
+        return bound(io + 2 * 4 * B * S * H * b + io, 2 * B * H * pairs * (3 * a + 2 * b), peak)
+
+    bound_ms, bound_by = work(hq, hv)
+    padded = {} if mla is None else {"padded_bound_ms": work(hd, hd)[0]}
+    del q, k, v, qp, kp, vp, o, lse, do, st, so, sdo
     _free(dev)
     return dict(
         name="flash_attn_backward",
         shape=f"{label}: B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{dtype},"
-        + ("causal" if causal else "full") + f",{flash.route(dt, hd)}"
-        + ("" if mla is None else f",MLA {mla[0]}/{mla[1]} padded"),
+        + ("causal" if causal else "full") + f",{flash.route(dt, hq, hv)}"
+        + ("" if mla is None else f",MLA {hq}/{hv} " + ("native" if native
+                                                         else f"padded to {hd}")),
         errs=errs, errs_blocked=errs_blocked, lse_err=lse_err, max_abs_err=max_abs,
         ms=ms, call_ms=call_ms, plain_ms=blocked_ms, library_ms=sdpa_ms,
-        bound_ms=bound_ms, bound_by=bound_by, **unpadded)
+        bound_ms=bound_ms, bound_by=bound_by, **padded)
 
 
 def _attention_projections(api) -> list[str]:
@@ -3386,14 +3421,14 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
 
 
 def _kernel_head_dim(cfg) -> int:
-    """The head dim ``flash_attn`` takes for ``cfg``: MLA's q.k and v dims
-    padded to the smallest of the kernel's that holds both
-    (``layers.attend``)."""
+    """The head dim ``flash_attn``'s forward kernels take for ``cfg``: MLA's
+    q.k and v dims padded to the smallest of theirs that holds both
+    (``ops.padded_dim``; the tensor-core backward takes MLA's own)."""
     from repro_torch.kernels.flash_attn import ops as flash
 
     hq = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.mla else cfg.head_dim
     hv = cfg.v_head_dim if cfg.mla else cfg.head_dim
-    return min(d for d in flash.HEAD_DIMS if d >= max(hq, hv))
+    return flash.padded_dim(hq, hv)
 
 
 @contextlib.contextmanager
@@ -3453,9 +3488,17 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
         _free(dev)
         cfg = dataclasses.replace(full, n_layers=train_layers,
                                   remat_group=default_remat_group(train_layers))
+        mla_before = flash.attention.mla_backward_launches
         with expandable_segments(dev):
             run = train_with_restart(dev, "train_families", cfg, steps, FAMILY_CKPT_AT, seq,
                                      batch, micro, lr=FAMILY_LR, in_memory=True)
+            native = flash.attention.mla_backward_launches - mla_before
+            backward = run["launches"]["flash_attn_backward"]
+            log(f"[train_families] {full.name}: {native} of {backward} backward launches on "
+                "the (96, 64) instance, unpadded")
+            require(native == (backward if full.mla and dev.type == "cuda" else 0),
+                    f"{arch}: {native} of {backward} attention backward launches took the "
+                    "(96, 64) instance; every MLA launch should")
             peak = max(r["peak"] for r in run["records"]) / 2**30
             log(f"[train_families] {full.name} trained at {train_layers} of {full.n_layers} "
                 f"layers: step peak {peak:.2f} GiB (limit {DRAW_BUDGET_GIB})")

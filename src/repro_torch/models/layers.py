@@ -576,25 +576,15 @@ def attend(q, k, v, scale, out_dtype, *, causal: bool = True):
     -> (B,S,H*hv) in ``out_dtype``: the ``flash_attn`` kernel (its plain
     version on CPU and ``meta`` tensors), or :func:`chunked_attention` on
     CPU and ``meta`` tensors longer than ``ATTN_CHUNK_THRESHOLD``; DTensors
-    go through :func:`_attend_heads`.
-
-    The kernel takes one head dim from ``flash.HEAD_DIMS`` for q, k and v.
-    Other dims (MLA's 96 for q.k and 64 for v) are zero-padded to the
-    smallest one that holds both, which leaves q.k unchanged; each head's
-    first ``hv`` output columns are kept.
+    go through :func:`_attend_heads`.  MLA's unequal dims (96 for q.k, 64
+    for v) go to the kernel as they are: ``flash.attention`` pads them where
+    a kernel needs it (the forward), and its backward takes them unpadded.
     """
     if _is_dtensor(q):
         return _attend_heads(q, k, v, scale, out_dtype, causal)
-    S, hq, hv = q.shape[1], q.shape[-1], v.shape[-1]
-    if q.device.type in ("cpu", "meta") and S > ATTN_CHUNK_THRESHOLD:
+    if q.device.type in ("cpu", "meta") and q.shape[1] > ATTN_CHUNK_THRESHOLD:
         return chunked_attention(q, k, v, scale, causal=causal, out_dtype=out_dtype)
-    if hq == hv and hq in flash.HEAD_DIMS:
-        return flash.attention(q, k, v, scale, causal=causal).to(out_dtype)
-    hd = min(d for d in flash.HEAD_DIMS if d >= max(hq, hv))
-    q, k, v = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
-    o = flash.attention(q, k, v, scale, causal=causal)
-    B, H = o.shape[0], q.shape[2]
-    return o.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv).to(out_dtype)
+    return flash.attention(q, k, v, scale, causal=causal).to(out_dtype)
 
 
 def _attend_heads(q, k, v, scale, out_dtype, causal: bool):

@@ -1,6 +1,9 @@
 """``flash_attn``'s backward pieces on the CPU: the row statistics the forward
 kernels write (``attention_lse_plain``), the softmax the backward kernels
-recompute from them, and the wrappers' plain routes, against the reference.
+recompute from them, and the wrappers' plain routes, against the reference;
+and at unequal q.k and v dims (MLA's 96 and 64, the smoke configs' 24 and
+16), which the wrappers take as they are, against ``jax.grad`` of the
+reference's ``chunked_attention``.
 
 The same numpy inputs go to both packages.  Tolerance 1e-5: f32 throughout,
 sums in another order.  The kernels themselves run only on the card
@@ -18,7 +21,9 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attn import ops as ref_flash  # noqa: E402
 from repro.kernels.flash_attn import ref as ref_attention  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -172,3 +177,114 @@ def test_backward_raises_off_cpu_and_cuda():
     dq, dk, dv = flash.attention_backward(*meta, 0.125, True)
     assert dq.device.type == "meta" and dq.shape == shapes[0] and dk.shape == shapes[1]
     assert flash.attention.backward_launches == before
+
+
+# unequal q.k and v dims at their own dims: (B, S, T, H, Hkv, hq, hv, causal)
+UNEQUAL = {
+    "mla 96/64 causal": (1, 12, 12, 2, 2, 96, 64, True),
+    "mla 96/64 full S<T": (1, 9, 20, 4, 2, 96, 64, False),
+    "mla 96/64 causal S>T": (2, 20, 9, 2, 1, 96, 64, True),
+    "smoke 24/16 causal S<T": (2, 7, 15, 4, 2, 24, 16, True),
+    "smoke 24/16 full": (1, 16, 16, 2, 2, 24, 16, False),
+}
+
+
+def _unequal_inputs(B, S, T, H, hkv, hq, hv, causal, seed=1):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, n, h, d)).astype(np.float32)
+               for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
+    do = rng.standard_normal((B, S, H * hv)).astype(np.float32)
+    return q, k, v, do, 1.0 / np.sqrt(hq)
+
+
+def _reference_chunked(q, k, v, do, scale, causal):
+    """The reference's ``chunked_attention`` (one query block) on the inputs,
+    and ``jax.grad`` of its output against ``do``."""
+    S = q.shape[1]
+
+    def f(q, k, v):
+        return ref_layers.chunked_attention(q, k, v, scale, causal=causal, q_block=S,
+                                            out_dtype=jnp.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(f(q, k, v) * jnp.asarray(do))
+
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    return np.asarray(f(*args)), [np.asarray(g) for g in jax.grad(loss, (0, 1, 2))(*args)]
+
+
+@pytest.mark.parametrize("case", UNEQUAL)
+def test_plain_versions_at_unequal_dims_match_reference_chunked_attention(case):
+    """``attention_plain``, ``attention_lse_plain`` and
+    ``attention_backward_blocked`` at unequal q.k and v dims: the output,
+    the row statistics and dq, dk, dv of ``jax.grad`` of the reference's
+    ``chunked_attention``, and autograd of ``attention_plain`` the same."""
+    B, S, T, H, hkv, hq, hv, causal = UNEQUAL[case]
+    q, k, v, do, scale = _unequal_inputs(*UNEQUAL[case])
+    want_o, want = _reference_chunked(q, k, v, do, scale, causal)
+    qt, kt, vt, dot = (torch.as_tensor(a) for a in (q, k, v, do))
+    o = flash.attention_plain(qt, kt, vt, scale, causal=causal)
+    assert o.shape == (B, S, H * hv)
+    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
+    lse = flash.attention_lse_plain(qt, kt, vt, scale, causal=causal)
+    np.testing.assert_allclose(lse.numpy(), _reference_lse(q, k, scale, causal), **TOL)
+    blocked = flash.attention_backward_blocked(qt, kt, vt, o, dot, scale, causal, q_block=5)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    autograd = torch.autograd.grad(flash.attention_plain(*leaves, scale, causal=causal), leaves,
+                                   dot)
+    for name, b, a, w in zip("qkv", blocked, autograd, want):
+        assert b.shape == w.shape and a.shape == w.shape, name
+        np.testing.assert_allclose(b.numpy(), w, err_msg=f"blocked d{name}", **TOL)
+        np.testing.assert_allclose(a.numpy(), w, err_msg=f"autograd d{name}", **TOL)
+
+
+def _padded_route(q, k, v, scale, causal):
+    """The route MLA took before the wrappers took unequal dims: q, k, v
+    zero-padded to the kernels' head dim, ``attention_plain``, and each
+    head's first hv output columns."""
+    B, S, H, hq = q.shape
+    hv = v.shape[-1]
+    hd = flash.padded_dim(hq, hv)
+    o = flash.attention_plain(*(torch.nn.functional.pad(t, (0, hd - t.shape[-1]))
+                                for t in (q, k, v)), scale, causal=causal)
+    return o.reshape(B, S, H, hd)[..., :hv].reshape(B, S, H * hv)
+
+
+@pytest.mark.parametrize("case", UNEQUAL)
+def test_unequal_dims_through_attend_and_the_function_equal_the_padded_route(case):
+    """``layers.attend`` (the plain route on CPU tensors) and ``FlashAttention``
+    on CPU tensors at the unpadded dims give the padded route's output and
+    gradients; the Function's gradients come back at q's, k's and v's own
+    dims and dtype."""
+    B, S, T, H, hkv, hq, hv, causal = UNEQUAL[case]
+    q, k, v, do, scale = _unequal_inputs(*UNEQUAL[case])
+    dot = torch.as_tensor(do)
+
+    def grads(fn):
+        leaves = [torch.as_tensor(a).requires_grad_() for a in (q, k, v)]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, dot)
+
+    want_o, want = grads(lambda *t: _padded_route(*t, scale, causal))
+    for label, fn in [("attend", lambda *t: layers.attend(*t, scale, torch.float32,
+                                                          causal=causal)),
+                      ("FlashAttention", lambda *t: flash.FlashAttention.apply(*t, scale,
+                                                                               causal))]:
+        got_o, got = grads(fn)
+        np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), err_msg=label, **TOL)
+        for name, g, w in zip("qkv", got, want):
+            assert g.shape == w.shape and g.dtype == torch.float32, (label, name)
+            np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=f"{label} d{name}", **TOL)
+
+
+@pytest.mark.parametrize("dtype,hq,hv,want,padded", [
+    (torch.bfloat16, 96, 64, "wgmma", 128), (torch.bfloat16, 24, 16, "fma", 32),
+    (torch.float32, 96, 64, "fma", 128), (torch.bfloat16, 128, 128, "wgmma", 128),
+    (torch.bfloat16, 64, 64, "wgmma", 64), (torch.bfloat16, 32, 32, "fma", 32),
+])
+def test_route_and_padded_dim_of_unequal_dims(dtype, hq, hv, want, padded):
+    """``route`` decides from the dtype and both head dims alone: bf16 at (64,
+    64), (128, 128) and MLA's (96, 64) on the tensor cores (the forward on
+    q, k, v padded to ``padded_dim``, the backward unpadded), all else FMA."""
+    assert flash.route(dtype, hq, hv) == want
+    assert flash.padded_dim(hq, hv) == padded

@@ -103,9 +103,10 @@ def test_attention_backward_casts_to_input_dtype():
 
 
 def test_attend_mla_padding_passes_the_gradient():
-    """``attend`` zero-pads MLA's q.k dim 96 and v dim 64 to the kernel's 128
-    and slices each head's first 64 columns back: the gradients through it
-    equal those of the unpadded attention."""
+    """``attend`` hands MLA's q.k dim 96 and v dim 64 to ``flash.attention``
+    as they are (its forward kernel takes them zero-padded to 128, each
+    head's first 64 columns kept; its backward takes them unpadded): the
+    gradients through it equal those of the unpadded attention."""
     rng = np.random.default_rng(3)
     B, S, H, hq, hv = 1, 12, 2, 96, 64
     q, k = (_t(rng.standard_normal((B, S, H, hq)).astype(np.float32), True) for _ in range(2))
