@@ -9,9 +9,12 @@
    at the shapes the main paths give it, with its time, the plain version's,
    a library call's where one computes the same function, and the bound
    from bytes and operations; ``flash_attn``'s backward at every shape a
-   training path launches (``FLASH_GRAD_SHAPES``, ``flash_grad_row``), and
-   each of its tensor-core instances' blocks per SM, registers, shared bytes
-   and spills (``flash_bwd_instances``).
+   training path launches (``FLASH_GRAD_SHAPES``, ``flash_grad_row``); at
+   every tensor-core forward row two calls on one input must give the same
+   bits, and MLA's rows must take the forward's own (96, 64) instance; and
+   each tensor-core instance's blocks per SM, registers, shared bytes and
+   spills, forward and backward (``flash_fwd_instances``,
+   ``flash_bwd_instances``).
 3. Pipeline: ``repro_torch.core.pipeline.resolve`` for nomp, smp and mmp on
    the HEPTH-like corpus ``SynthConfig.hepth(scale=1.0, seed=7)`` on CUDA,
    then the MMP fixpoint scored with ``MLNMatcher.score``.  The kernels'
@@ -134,8 +137,9 @@
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
    through an ``Engine`` of batch 1.  Logits finite, every request its
    tokens, and ``flash_attn`` launched exactly layers x prefills times, all
-   on the tensor-core route (the forward takes MiniCPM3's q.k dim 96 and v
-   dim 64 padded to 128), and 0 times for Falcon-Mamba.  Prints prefill and decode ms,
+   on the tensor-core route (MiniCPM3's every launch on the forward's own
+   (96, 64) instance, q.k dim 96 and v dim 64 unpadded), and 0 times for
+   Falcon-Mamba.  Prints prefill and decode ms,
    tokens/s, peak memory and the busy share of one more batch run.  Then the
    decode-only families (``LM_DECODE_ONLY``), which have no prefill in the
    reference: ``launch.serve`` must exit with "has no prefill path", and the
@@ -177,8 +181,8 @@
 14. Train families (``train_families``): the MoE and MLA families trained
    at full width (``TRAIN_FAMILIES``): Moonlight-16B-A3B (64 experts top-6,
    16/16 heads at hd 128, vocabulary 163,840) and MiniCPM3-4B (MLA, q.k 96
-   and v 64, 40 heads: the forward padded to 128, every backward launch on
-   the tensor-core backward's unpadded (96, 64) instance).  Each first at 2 layers on the card
+   and v 64, 40 heads: every forward and backward launch on the tensor-core
+   kernels' unpadded (96, 64) instances).  Each first at 2 layers on the card
    against the CPU from one seed-0 draw (``check_train_card_vs_cpu``: loss
    and every gradient within 2e-2, the CPU on the card's MoE routing and
    every routing difference a near-tie, every attention projection of the
@@ -626,10 +630,12 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         return torch.as_tensor(a, device=dev)
 
     def check(name, shape, kernel, plain, library, tol, n_bytes, ops, peak=PEAK_F32_FLOPS,
-              iters=50, dense=None, unpadded=None):
+              iters=50, dense=None, padded=None, was=None):
         """``dense``: (bytes, ops) of a kernel that reads every input whole,
         where ``n_bytes`` and ``ops`` count only what this input's data needs;
-        ``unpadded``: (bytes, ops) of the work before its head dims were padded."""
+        ``padded``: (bytes, ops) of the work at head dims padded to the FMA
+        route's (and SDPA's); ``was``: the row's ms in ``PERF.md`` before
+        its kernel's last redesign."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if tol is None:  # exact: integer outputs
@@ -646,16 +652,18 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, peak)
         if dense is not None:
             row["dense_bound_ms"] = bound(*dense, peak)[0]
-        if unpadded is not None:
-            row["unpadded_bound_ms"] = bound(*unpadded, peak)[0]
+        if padded is not None:
+            row["padded_bound_ms"] = bound(*padded, peak)[0]
+        if was is not None:
+            row["was_ms"] = was
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(
             f"[kernels] {name:9s} {shape:22s} ok  max_abs_err={row['max_abs_err']:.3g}"
             f"  kernel_ms={ms:.4f} (eager call {call_ms:.4f})  plain_ms={row['plain_ms']:.4f}"
             f"  library_ms={lib}  bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
             + (f"  dense_bound_ms={row['dense_bound_ms']:.5f}" if dense is not None else "")
-            + (f"  unpadded_bound_ms={row['unpadded_bound_ms']:.5f}"
-               if unpadded is not None else "")
+            + (f"  padded_bound_ms={row['padded_bound_ms']:.5f}" if padded is not None else "")
+            + (f"  was_ms={was:.4f}" if was is not None else "")
         )
         rows.append(row)
 
@@ -763,9 +771,10 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
     # 64; then every shape the lm_families phase sends: MiniCPM3's MLA long
-    # prompt and its served requests, q.k dim 96 and v dim 64 zero-padded to
-    # 128, Llama-4 Scout's GQA group of 5, Qwen2-VL's group of 7 at its vision
-    # forward and its served requests, Moonlight's MHA requests; Jamba's
+    # prompt and its served requests, q.k dim 96 and v dim 64 unpadded on the
+    # tensor cores' (96, 64) instance, Llama-4 Scout's GQA group of 5,
+    # Qwen2-VL's group of 7 at its vision forward and its served requests,
+    # Moonlight's MHA requests; Jamba's
     # forward_train against the CPU (S=128) and served (S=2,048), Whisper's
     # non-causal encoder over 1,500 frames (1,500 is not a multiple of the
     # 64-key tile: the masked key tail and the TMA box past T), its cross
@@ -809,47 +818,62 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     ]:
         if not wanted("flash_attn"):
             break
+        # MLA: q, k and v at their own dims, as the path sends them (hd is
+        # the FMA route's padded dim and SDPA's)
+        hq, hv = mla or (hd, hd)
         q, k, v = (
-            put(rng.standard_normal((B, n, h, hd)).astype(np.float32)).to(dtype)
-            for n, h in [(S, H), (T, hkv), (T, hkv)]
+            put(rng.standard_normal((B, n, h, d)).astype(np.float32)).to(dtype)
+            for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)]
         )
-        scale = 1.0 / np.sqrt(hd)
+        scale = 1.0 / np.sqrt(hq)
         # (row, col) score pairs this input needs: all, or col <= row under the mask
         pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
         esize = q.element_size()
-        unpadded = None
-        if mla is not None:  # the columns past the true head dims are the padding's zeros
-            hq, hv = mla
-            q[..., hq:] = 0
-            k[..., hq:] = 0
-            v[..., hv:] = 0
-            scale = 1.0 / np.sqrt(hq)
-            # the unpadded work: q.k over hq, p.v over hv
-            unpadded = (esize * (B * S * H * hq + B * T * hkv * (hq + hv)) + 4 * B * S * H * hv,
-                        2 * B * H * pairs * (hq + hv))
-        route = flash.route(dtype, hd)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        route, fq, fv = flash.forward_dims(dtype, hq, hv)
+        native = mla is not None and (fq, fv) == (hq, hv)
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
         before = flash.attention.wgmma_launches
+        mla_before = flash.attention.mla_forward_launches
+        shape = (f"B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{str(dtype)[6:]},"
+                 + ("causal" if causal else "full") + f",{route}"
+                 + ("" if mla is None else f",MLA {hq}/{hv} "
+                    + ("native" if native else f"padded to {fq}")))
         check(
-            "flash_attn",
-            f"B={B},S={S},T={T},H={H},Hkv={hkv},hd={hd},{str(dtype)[6:]},"
-            + ("causal" if causal else "full") + f",{route}"
-            + ("" if mla is None else f",MLA {mla[0]}/{mla[1]} padded"),
+            "flash_attn", shape,
             lambda: flash.attention(q, k, v, scale, causal=causal),
             lambda: flash.attention_plain(q, k, v, scale, causal=causal),
+            # SDPA on the inputs padded to hd, as in the rows of earlier runs
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
                 is_causal=causal, scale=scale, enable_gqa=True),
             dict(rtol=2e-3, atol=2e-3),
-            esize * (B * S * H * hd + 2 * B * T * hkv * hd) + 4 * B * S * H * hd,
-            4 * B * H * hd * pairs,
-            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
-            iters=10 if S * T > 1 << 20 else 50, unpadded=unpadded,
+            # q.k over hq and p.v over hv: the unpadded work
+            esize * (B * S * H * hq + B * T * hkv * (hq + hv)) + 4 * B * S * H * hv,
+            2 * B * H * pairs * (hq + hv), peak,
+            iters=10 if S * T > 1 << 20 else 50,
+            padded=None if mla is None else (
+                esize * (B * S * H * hd + 2 * B * T * hkv * hd) + 4 * B * S * H * hd,
+                4 * B * H * hd * pairs),
+            was=FORWARD_WAS_MS.get((B, S, T, H, hkv, hd, mla)) if dtype == torch.bfloat16
+            else None,
         )
         require((flash.attention.wgmma_launches > before) == (route == "wgmma"),
-                f"flash_attn at hd={hd}, {dtype} did not take the {route} route")
+                f"flash_attn at ({hq}, {hv}), {dtype} did not take the {route} route")
+        require((flash.attention.mla_forward_launches > mla_before) == (native and hq != hv),
+                f"flash_attn at ({hq}, {hv}), {dtype}: the (96, 64) instance "
+                + ("did not take" if native else "took") + " the call")
+        if route == "wgmma":
+            a, b = flash.attention(q, k, v, scale, causal=causal), flash.attention(
+                q, k, v, scale, causal=causal)
+            require(torch.equal(a, b), f"flash_attn {shape}: two calls on one input differ")
+            rows[-1]["equal_calls"] = True
+            del a, b
+        del q, k, v, qp, kp, vp
 
     # the backward at every shape a training path launches, and the FMA route's
     if wanted("flash_attn") and dev.type == "cuda":
+        flash_fwd_instances()
         flash_bwd_instances()
     for shape in FLASH_GRAD_SHAPES if wanted("flash_attn") else []:
         r = flash_grad_row(dev, *shape)
@@ -864,6 +888,26 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
                if "padded_bound_ms" in r else ""))
         rows.append(r)
     return rows
+
+
+def flash_fwd_instances() -> None:
+    """One line for each instance of the tensor-core forward
+    (``csrc/flash_attn_sm90.cu``): its blocks per SM, registers, shared bytes
+    and spilled bytes as the card's runtime gives them."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    rows = (ctypes.c_int * 7 * 8)()
+    n = build.library().repro_flash_attn_sm90_instances(ctypes.addressof(rows), 8)
+    require(n > 0, f"flash_attn forward instances: CUDA error {-n}")
+    for r in range(max(n, 0)):
+        hq, hv, v16, blocks, regs, smem, local = rows[r]
+        log(f"[kernels] flash_attn forward instance ({hq}, {hv}), "
+            + ("V from the fp16 copy" if v16 else "V converted in shared memory")
+            + f": {blocks} block(s) per SM, {regs} registers a thread, {smem} shared bytes a "
+            f"block, {local} spilled bytes a thread")
+        require(blocks >= 1, f"flash_attn forward ({hq}, {hv}): no block fits an SM")
 
 
 def flash_bwd_instances() -> None:
@@ -2334,6 +2378,7 @@ def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
+    mla_before = _wrappers()["flash_attn"].mla_forward_launches
     with engine_probe(dev) as rec:
         t0 = time.perf_counter()
         outs = serve.main(argv)
@@ -2357,6 +2402,7 @@ def family_serve(dev, arch: str, layers: int, max_new: int = 8, long_len: int = 
         out["long"] = lrec
     out["launches"] = _read_counts()
     out["wgmma_launches"] = _wrappers()["flash_attn"].wgmma_launches
+    out["mla_forward_launches"] = _wrappers()["flash_attn"].mla_forward_launches - mla_before
     if dev.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     requests = np.random.default_rng(0).integers(1, engine.api.cfg.vocab_size - 1, (4, 32),
@@ -2829,6 +2875,9 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
         require(res["wgmma_launches"] == want,
                 f"{arch}: {res['wgmma_launches']} of {want} flash_attn launches took the "
                 f"tensor-core route")
+        require(res["mla_forward_launches"] == (want if full.mla else 0),
+                f"{arch}: {res['mla_forward_launches']} of {want} flash_attn launches took the "
+                "(96, 64) instance; every MLA launch should, and no other")
         req = res["requests"]
         dec = float(np.median(req["decode_ms"]))
         log(f"[lm_families] {full.name} served at {serve_layers} of {full.n_layers} layers "
@@ -2839,7 +2888,7 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
             + ("" if deeper is None else f" ({deeper:.2f} with one more layer)")
             + f"; peak {res.get('peak_bytes', 0) / 2**30:.2f} GiB; device "
             f"busy {res['busy']}; flash_attn {launches['flash_attn']} (tensor cores "
-            f"{res['wgmma_launches']})")
+            f"{res['wgmma_launches']}, the (96, 64) instance {res['mla_forward_launches']})")
         if long:
             lng = res["long"]
             ldec = float(np.median(lng["decode_ms"]))
@@ -2879,13 +2928,31 @@ FAMILY_SMOKE = (8, 256)
 # 11.58 -> 14.25 over 4 steps, at 1e-4 it rises at steps 2-3 and ends at 8.72;
 # the card follows the CPU there (tests/train_family_probe.py, PERF.md §6)
 FAMILY_LR = 1e-4
+# The tensor-core forward's phase-2 ms before its redesign around one fp16
+# P.V product and MLA's (96, 64) instance, from PERF.md's kernel table:
+# (B, S, T, H, Hkv, hd, MLA dims) -> ms ("NVIDIA H100 80GB HBM3, 700.00 W";
+# the two MLA rows at B=4, S=32 and B=2, S=256 from tests/flash_fwd_probe.py
+# on the tree before it, padding included, the rest from phase 2)
+FORWARD_WAS_MS = {
+    (4, 32, 32, 32, 4, 128, None): 0.0042,
+    (1, 4096, 4096, 32, 4, 128, None): 0.4216,
+    (1, 4096, 4096, 40, 40, 128, (96, 64)): 0.5297,
+    (4, 2048, 2048, 16, 16, 64, None): 0.1301,
+    (2, 256, 256, 16, 16, 64, None): 0.0063,
+    (1, 2048, 2048, 32, 4, 128, None): 0.1169,
+    (4, 2048, 2048, 8, 8, 64, None): 0.0764,
+    (4, 2048, 2048, 16, 16, 128, None): 0.2389,
+    (4, 2048, 2048, 40, 40, 128, (96, 64)): 0.8556,
+    (4, 32, 32, 40, 40, 128, (96, 64)): 0.0195,
+    (2, 256, 256, 40, 40, 128, (96, 64)): 0.0433,
+}
 # flash_attn's backward in phase 2, at every shape a training path launches
 # (phase train_mesh's launcher ranks run Qwen1.5-0.5B's smoke config, phase
 # train_families' launchers Moonlight's and MiniCPM3's: bf16 at hd 16 and 32,
 # the FMA route) and the FMA route's: (label, B, S, T, H, Hkv, hd, dtype,
-# causal, MLA (q.k dim, v dim)); hd is the forward's, MLA's dims padded to
-# it (the tensor-core backward takes 96/64 unpadded, the FMA one 24/16
-# padded to 32)
+# causal, MLA (q.k dim, v dim)); hd is the FMA route's and SDPA's, to which
+# MLA's dims are padded only there (the tensor-core kernels take 96/64
+# unpadded, the FMA ones 24/16 padded to 32)
 FLASH_GRAD_SHAPES = [
     ("Qwen1.5-0.5B train", 4, 2048, 2048, 16, 16, 64, "bf16", True, None),
     ("Moonlight train", 4, 2048, 2048, 16, 16, 128, "bf16", True, None),
@@ -3420,15 +3487,11 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     return launches
 
 
-def _kernel_head_dim(cfg) -> int:
-    """The head dim ``flash_attn``'s forward kernels take for ``cfg``: MLA's
-    q.k and v dims padded to the smallest of theirs that holds both
-    (``ops.padded_dim``; the tensor-core backward takes MLA's own)."""
-    from repro_torch.kernels.flash_attn import ops as flash
-
-    hq = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.mla else cfg.head_dim
-    hv = cfg.v_head_dim if cfg.mla else cfg.head_dim
-    return flash.padded_dim(hq, hv)
+def _head_dims(cfg) -> tuple[int, int]:
+    """``cfg``'s attention head dims: (q.k, v), MLA's two or the head dim twice."""
+    if cfg.mla:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
 
 
 @contextlib.contextmanager
@@ -3489,16 +3552,28 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
         cfg = dataclasses.replace(full, n_layers=train_layers,
                                   remat_group=default_remat_group(train_layers))
         mla_before = flash.attention.mla_backward_launches
+        mla_fwd_before = flash.attention.mla_forward_launches
         with expandable_segments(dev):
             run = train_with_restart(dev, "train_families", cfg, steps, FAMILY_CKPT_AT, seq,
                                      batch, micro, lr=FAMILY_LR, in_memory=True)
             native = flash.attention.mla_backward_launches - mla_before
+            native_fwd = flash.attention.mla_forward_launches - mla_fwd_before
             backward = run["launches"]["flash_attn_backward"]
-            log(f"[train_families] {full.name}: {native} of {backward} backward launches on "
-                "the (96, 64) instance, unpadded")
-            require(native == (backward if full.mla and dev.type == "cuda" else 0),
+            forward = run["launches"]["flash_attn"]
+            log(f"[train_families] {full.name}: {native_fwd} of {forward} forward and {native} "
+                f"of {backward} backward launches on the (96, 64) instances, unpadded")
+            on_card = full.mla and dev.type == "cuda"
+            require(native_fwd == (forward if on_card else 0),
+                    f"{arch}: {native_fwd} of {forward} attention forward launches took the "
+                    "(96, 64) instance; every MLA launch should")
+            require(native == (backward if on_card else 0),
                     f"{arch}: {native} of {backward} attention backward launches took the "
                     "(96, 64) instance; every MLA launch should")
+            if full.mla:
+                step_ms = [r["ms"] for r in run["records"][1:]]
+                log(f"[train_families] {full.name} at {train_layers} layers: steps after the "
+                    f"first {min(step_ms):.1f}-{max(step_ms):.1f} ms (1,825.1-1,841.7 ms with "
+                    "the forward padded to hd 128)")
             peak = max(r["peak"] for r in run["records"]) / 2**30
             log(f"[train_families] {full.name} trained at {train_layers} of {full.n_layers} "
                 f"layers: step peak {peak:.2f} GiB (limit {DRAW_BUDGET_GIB})")
@@ -3510,7 +3585,7 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
 
         smoke = smoke_config(arch)
         smoke = dataclasses.replace(smoke, remat_group=default_remat_group(smoke.n_layers))
-        tensor_cores = flash.route(torch.bfloat16, _kernel_head_dim(smoke)) == "wgmma"
+        tensor_cores = flash.route(torch.bfloat16, *_head_dims(smoke)) == "wgmma"
         s_batch, s_seq = FAMILY_SMOKE
         run = train_with_restart(dev, "train_families", smoke, steps, FAMILY_CKPT_AT, s_seq,
                                  s_batch, 1, tensor_cores=tensor_cores)

@@ -10,9 +10,9 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D),  dQ = dS K scale,  dK = dS^T Q scale
 // with each GQA group's G = H / Hkv query heads summed into its KV head.
 // Other types and head dims take flash_attn_bwd.cu; kernels/flash_attn/ops.py
-// chooses, as for the forward.  MLA's forward pads q.k and v to 128 for
-// flash_attn_sm90.cu; this backward takes the unpadded tensors, so it
-// multiplies no padding's zeros (0.615 of the padded work).
+// chooses, as for the forward.  Like the forward (flash_attn_sm90.cu), it
+// takes MLA's tensors unpadded, so it multiplies no padding's zeros (0.615
+// of the work padded to 128).
 //
 // Replaces no TPU kernel: the Pallas flash_attention
 // (src/repro/kernels/flash_attn/kernel.py) has no custom_vjp, and the
@@ -126,14 +126,6 @@ static_assert(BQ == BOX_ROWS && BK == BOX_ROWS, "a warpgroup's tile is one TMA b
 // The maxima the first pass reduces: q, k, v, dO (float bits).
 enum { AMAX_Q, AMAX_K, AMAX_V, AMAX_DO, N_AMAX };
 
-// 2^e as a float, e clamped to the normal range.
-__device__ __forceinline__ float pow2(int e) {
-  return __int_as_float((min(max(e, -126), 127) + 127) << 23);
-}
-
-// E with x < 2^E for x > 0 (x = m 2^(E-1), 1 <= m < 2), from its bits.
-__device__ __forceinline__ int bits_exp(uint32_t bits) { return (int)((bits >> 23) & 0xff) - 126; }
-
 // The power-of-two scales of the operands, from the maxima: q, k, v and dO
 // by 2^(15 - E) (max |x| * scale < 2^15, inside fp16's 65504); dS by the
 // same for its bound 2 hv max|dO| max|v|.
@@ -152,22 +144,6 @@ struct Scales {
              : pow2(15 - (1 + log2_hv + bits_exp(amax[AMAX_DO]) + bits_exp(amax[AMAX_V])));
   }
 };
-
-// Two floats as an fp16 pair (the register A operand's element order).
-__device__ __forceinline__ uint32_t half2_bits(float x, float y) {
-  const __half2 h = __floats2half2_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The float32 fragment of a 64 x 64 accumulator, times `mul`, as the fp16
-// register A fragment of a product contracted over its 64 columns.
-__device__ __forceinline__ void half_fragment(const float (&x)[32], float mul, uint32_t (&a)[16]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a[2 * j] = half2_bits(x[4 * j] * mul, x[4 * j + 1] * mul);
-    a[2 * j + 1] = half2_bits(x[4 * j + 2] * mul, x[4 * j + 3] * mul);
-  }
-}
 
 // The bf16 values of `bytes` of shared memory to fp16 times `mul`, in
 // place (a tile's swizzled layout is the same for both 16-bit types), 16
@@ -188,23 +164,6 @@ __device__ __forceinline__ void convert_smem(uint8_t* p, int bytes, float mul, i
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-
-// The column boxes of a tile W fp16 values wide: at W = 64 or 128, boxes of
-// 64 columns in the 128-byte swizzle; at MLA's 96, three boxes of 32 in the
-// 64-byte swizzle, so that one n96 wgmma reads all 96 as its MN-major B
-// operand (a 64-column box in the 128-byte swizzle beside a 32-column one
-// in the 64-byte swizzle would take an n64 and an n32).  A tile of R rows
-// keeps each box's R rows together, box i at i * R * ROW bytes.
-template <int W>
-struct Cols {
-  static_assert(W == 64 || W == 96 || W == 128, "a tile is 64, 96 or 128 columns wide");
-  static constexpr int BOX_COLS = W == 96 ? 32 : 64;
-  static constexpr int ROW = 2 * BOX_COLS;  // bytes of a box's row
-  static constexpr int BOXES = W / BOX_COLS;
-  static constexpr int ATOM = 8 * ROW;      // an 8-row swizzle atom
-  static constexpr uint64_t LAYOUT = W == 96 ? SW64 : SW128;
-  __host__ __device__ static constexpr int tile(int rows) { return rows * 2 * W; }
-};
 
 // The ring's depth: 3 stages where two warpgroups share it (one may run
 // ahead of the other by up to two tiles), 2 for one.
@@ -242,67 +201,6 @@ struct QSmem {
   static_assert(DO_OFF % 1024 == 0 && RING_OFF % 1024 == 0 && STAGE_BYTES % 1024 == 0 &&
                 K_TILE % 1024 == 0, "each tile starts a 1024-byte swizzle atom");
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// Copy rows [row, row + R) of head `head` of a W-column tensor into the
-// tile at `dst`, completing on `bar` (one thread; the caller counts the
-// bytes on the barrier).
-template <int W, int R>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* m, uint64_t* bar,
-                                          int head, int row, int b) {
-  using C = Cols<W>;
-#pragma unroll
-  for (int rb = 0; rb < R / BOX_ROWS; ++rb)
-#pragma unroll
-    for (int i = 0; i < C::BOXES; ++i)
-      tma_load_4d(dst + i * R * C::ROW + rb * BOX_ROWS * C::ROW, m, bar, i * C::BOX_COLS, head,
-                  row + rb * BOX_ROWS, b);
-}
-
-// Descriptor of k-step kk (16 of W columns) of rows r0 .. r0 + 63 of an
-// R-row tile read K-major: the wgmma A or B operand contracted along its
-// columns.
-template <int W, int R>
-__device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* tile, int r0, int kk) {
-  using C = Cols<W>;
-  constexpr int STEPS = C::BOX_COLS / 16;  // k-steps a box
-  return sw_desc(tile + (kk / STEPS) * R * C::ROW + r0 * C::ROW + (kk % STEPS) * 32, 16, C::ATOM,
-                 C::LAYOUT);
-}
-
-// acc (64 x 64) = rows a_r0 .. a_r0 + 63 of an RA-row tile (64 x W) . a
-// 64-row tile (64 x W)^T, contracted over W
-template <int W, int RA>
-__device__ __forceinline__ void product_nt(float (&acc)[32], const uint8_t* a, int a_r0,
-                                           const uint8_t* b) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk)
-    wgmma_ss_n64_f16(acc, kmajor_desc<W, RA>(a, a_r0, kk), kmajor_desc<W, BK>(b, 0, kk), kk > 0);
-}
-
-// acc (64 x W) += A (64 x 64, fp16 registers) . a 64-row, W-column tile
-// read MN-major (N along its columns): one wgmma a k-step of 16 rows, the
-// boxes BOX_ROWS * ROW bytes apart.
-template <int W>
-__device__ __forceinline__ void product_rs(float (&acc)[W / 2], const uint32_t (&a)[16],
-                                           const uint8_t* tile) {
-  using C = Cols<W>;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc =
-        sw_desc(tile + kk * 16 * C::ROW, BOX_ROWS * C::ROW, C::ATOM, C::LAYOUT);
-    if constexpr (W == 128) {
-      wgmma_rs_n128_f16(acc, a + 4 * kk, desc);
-    } else if constexpr (W == 96) {
-      wgmma_rs_n96_f16(acc, a + 4 * kk, desc);
-    } else {
-      wgmma_rs_n64_f16(acc, a + 4 * kk, desc);
-    }
-  }
-}
 
 // Store a 64 x W float32 accumulator (its 8-column chunks in order), times
 // `mul`, to rows r0 + (this thread's rows) of dst (row stride `stride`
@@ -356,15 +254,8 @@ __global__ void __launch_bounds__(256)
       m = fmaxf(m, fmaxf(fmaxf(fabsf(f.x), fabsf(f.y)), fmaxf(fabsf(f.z), fabsf(f.w))));
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ float warp_max[8];
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < 8; ++w) m = fmaxf(m, warp_max[w]);
-    atomicMax(amax + which, __float_as_uint(m));
-  }
+  m = block_max(m);
+  if (threadIdx.x == 0) atomicMax(amax + which, __float_as_uint(m));
 }
 
 // q, k, v (blockIdx.y 0..2; k and v only where the dQ kernel streams fp16
@@ -823,15 +714,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The TMA map of a (B, seq, heads, W) 16-bit tensor in Cols<W>'s boxes.
-template <int W>
-bool encode_cols(EncodeTiled encode, CUtensorMap* m, const void* base, int B, int seq,
-                 int heads, bool fp16) {
-  return encode_map(encode, m, base, B, seq, heads, W, Cols<W>::BOX_COLS,
-                    W == 96 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-                    fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
-}
-
 // Blocks of 256 threads for a grid-stride pass of n elements, per a thread:
 // at most 8 an SM of the H100's 132.
 int stride_blocks(size_t n, int per) {
@@ -866,19 +748,6 @@ cudaError_t side_stream(Side** out) {
   }
   *out = &side;
   return cudaSuccess;
-}
-
-int sm_count() {
-  static std::atomic<int> count{0};
-  int n = count.load();
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 1;
-    count.store(n);
-  }
-  return n;
 }
 
 // How a call runs, from its shapes alone:

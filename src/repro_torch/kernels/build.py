@@ -34,7 +34,9 @@ SIGNATURES = {
     "repro_mln_score": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_minhash": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_flash_attn": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
-    "repro_flash_attn_sm90": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    "repro_flash_attn_sm90": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attn_sm90_plan": [_I] * 3,
+    "repro_flash_attn_sm90_instances": [_P, _I],
     "repro_flash_attn_bwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
     "repro_flash_attn_bwd_sm90": [_P] * 17 + [_I] * 7 + [_F, _I, _P],
     "repro_flash_attn_bwd_sm90_plan": [_I] * 6 + [_P],

@@ -13,17 +13,19 @@ it.  Two CUDA kernels replace the Pallas kernel
 ``src/repro/kernels/flash_attn/kernel.py``; :func:`route` picks one from
 the input's dtype and head dims alone:
 
-* ``"wgmma"``, ``csrc/flash_attn_sm90.cu``: bf16 inputs with hd 64 or 128
-  (Yi-6B's and Qwen1.5's prefills), and MLA's (96, 64), on the tensor
-  cores with TMA loads;
+* ``"wgmma"``, ``csrc/flash_attn_sm90.cu``: bf16 inputs with (hq, hv) =
+  (64, 64) (Qwen1.5's prefills), (128, 128) (Yi-6B's) or MLA's own (96, 64)
+  (:data:`WGMMA_DIMS`), unpadded, on the tensor cores with TMA loads: q.k
+  in bf16, P.V once in fp16 against a copy of v scaled by a power of two
+  a 64-key tile;
 * ``"fma"``, ``csrc/flash_attn.cu``: every other input it takes (f32, and
   hd 8, 16 or 32), with float32 FMAs.
 
-A forward kernel takes one head dim from :data:`HEAD_DIMS` for q, k and
-v; other dims (MLA's 96 and 64, the smoke configs' 24 and 16) are
-zero-padded to :func:`padded_dim`, which leaves q.k unchanged, and each
-head's first hv output columns are kept.  This module is the one place
-that pads.
+The FMA kernel takes one head dim from :data:`HEAD_DIMS` for q, k and v;
+other dims (the smoke configs' 24 and 16, MLA's in f32) are zero-padded to
+:func:`padded_dim`, which leaves q.k unchanged, and each head's first hv
+output columns are kept.  :func:`forward_dims` says which kernel takes a
+call at which dims; this module is the one place that pads.
 
 Each source says what bounds it on the H100.  CPU tensors go to
 :func:`attention_plain`.
@@ -38,8 +40,7 @@ kernels, which recompute the softmax from ``lse``:
 * ``"wgmma"``, ``csrc/flash_attn_bwd_sm90.cu``: dK/dV and dQ on the tensor
   cores, every operand in fp16 with an exact power-of-two scale (q, k, v
   and dO by their maxima, dS by its bound) that the kernels compute on the
-  card; instances for (hq, hv) = (64, 64), (128, 128) and MLA's own (96,
-  64), which takes the unpadded tensors (:data:`WGMMA_BWD_DIMS`);
+  card; the forward's instances, unpadded;
 * ``"fma"``, ``csrc/flash_attn_bwd.cu``: the same math in float32 FMAs, on
   the forward's padded dims.
 
@@ -66,13 +67,16 @@ NEG_INF = -1e30
 # query rows a block of the blocked backward (the reference's ATTN_Q_BLOCK)
 Q_BLOCK = 1024
 
-# head dims the forward kernels are instantiated for: 128 (Yi-6B), 64
-# (Qwen1.5), 8 and 16 (the embedding matcher's encoder and the smoke
-# configs), 32
+# head dims the FMA kernels are instantiated for: 8 and 16 (the embedding
+# matcher's encoder and the smoke configs), 32, 64 and 128 (f32 inputs)
 HEAD_DIMS = (8, 16, 32, 64, 128)
-# (q.k dim, v dim) of the tensor-core backward's instances: the forward's,
-# and MLA's own (MiniCPM3's 96 and 64), which it takes unpadded
-WGMMA_BWD_DIMS = ((64, 64), (128, 128), (96, 64))
+# (q.k dim, v dim) of the tensor-core kernels' instances, forward and
+# backward: Qwen1.5's, Yi-6B's and MLA's own (MiniCPM3's 96 and 64), each
+# taken unpadded
+WGMMA_DIMS = ((64, 64), (128, 128), (96, 64))
+# key rows of a tile of the tensor-core forward's fp16 copy of v, each with
+# its own power-of-two scale
+_V16_TILE = 64
 # rows of the tensor-core backward's statistics tables: S rounded up to this
 _STAT_ROWS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,16 +86,30 @@ def route(dtype: torch.dtype, hq: int, hv: int | None = None) -> str:
     """The CUDA kernels that take a call of q.k dim ``hq`` and v dim ``hv``
     (``hq`` when not given): ``"wgmma"`` or ``"fma"``."""
     hv = hq if hv is None else hv
-    return "wgmma" if dtype == torch.bfloat16 and (hq, hv) in WGMMA_BWD_DIMS else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and (hq, hv) in WGMMA_DIMS else "fma"
 
 
 def padded_dim(hq: int, hv: int) -> int:
-    """The forward kernels' head dim for q.k dim ``hq`` and v dim ``hv``:
-    the smallest of :data:`HEAD_DIMS` that holds both."""
+    """The FMA kernels' head dim for q.k dim ``hq`` and v dim ``hv``: the
+    smallest of :data:`HEAD_DIMS` that holds both."""
     fits = [d for d in HEAD_DIMS if d >= max(hq, hv)]
     if not fits:
         raise ValueError(f"head dims ({hq}, {hv}) exceed the kernels' {HEAD_DIMS[-1]}")
     return fits[0]
+
+
+def forward_dims(dtype: torch.dtype, hq: int, hv: int) -> tuple[str, int, int]:
+    """The forward kernel that takes a call of ``dtype``, q.k dim ``hq`` and
+    v dim ``hv``, and the (q.k, v) dims it runs at: the tensor-core route's
+    own instances as they are (MLA's (96, 64) unpadded), the FMA route at
+    :func:`padded_dim` for both, where q, k and v are zero-padded and each
+    head's first ``hv`` output columns kept."""
+    if route(dtype, hq, hv) == "wgmma":
+        return "wgmma", hq, hv
+    if hq == hv and hq in HEAD_DIMS:
+        return "fma", hq, hv
+    hd = padded_dim(hq, hv)
+    return "fma", hd, hd
 
 
 def _pad_heads(t, hd: int):
@@ -199,9 +217,8 @@ class FlashAttention(torch.autograd.Function):
 
 def attention_forward(q, k, v, scale, *, causal: bool = True):
     """:func:`attention`'s output (B, S, H*hv) and each row's log-sum-exp
-    ((B, H, S) f32), the statistics :func:`attention_backward` reads: one
-    launch of the forward kernel on CUDA tensors (on q, k, v padded to
-    :func:`padded_dim` where their dims are not one of its own), the plain
+    ((B, H, S) f32), the statistics :func:`attention_backward` reads: the
+    forward kernel on CUDA tensors (at :func:`forward_dims`), the plain
     versions on CPU and ``meta`` tensors."""
     if takes_plain(q):
         return (attention_plain(q, k, v, scale, causal=causal),
@@ -219,7 +236,7 @@ def attention_backward(q, k, v, o, lse, do, scale, causal: bool = True):
 
     CUDA tensors launch the backward kernels of :func:`route`, or raise:
     the tensor-core backward on q, k, v as they are ((hq, hv) one of
-    :data:`WGMMA_BWD_DIMS`), the FMA one on them padded to
+    :data:`WGMMA_DIMS`), the FMA one on them padded to
     :func:`padded_dim`.  CPU and ``meta`` tensors take the plain version,
     :func:`attention_backward_blocked` on f32 copies (``lse`` unused)."""
     if takes_plain(q):
@@ -237,7 +254,7 @@ def attention_backward(q, k, v, o, lse, do, scale, causal: bool = True):
             _pad_heads(do.reshape(B, S, H, hv), hd).reshape(B, S, H * hd), scale, causal)
         return (dq[..., :hq].contiguous(), dk[..., :hq].contiguous(),
                 dv[..., :hv].contiguous())
-    _check(q, k, v, WGMMA_BWD_DIMS if wgmma else None)
+    _check(q, k, v, WGMMA_DIMS if wgmma else None)
     check_operand("o", o, (B, S, H * hv), q.device)
     check_operand("do", do, (B, S, H * hv), q.device)
     check_operand("lse", lse, (B, H, S), q.device)
@@ -325,44 +342,58 @@ def _aligned(**tensors) -> None:
 
 
 def _forward(q, k, v, scale, causal: bool, lse=None):
-    """:func:`_launch` on q, k, v padded to :func:`padded_dim` where their
-    dims are not one of the forward kernels', and each head's first hv
-    output columns."""
+    """:func:`_launch` at :func:`forward_dims`: on q, k, v as they are
+    (contiguous: MLA's v is a view of its key-value projection), or padded
+    for the FMA kernel and each head's first hv output columns."""
     hq, hv = q.shape[-1], v.shape[-1]
-    if hq == hv and hq in HEAD_DIMS:
-        return _launch(q, k, v, scale, causal, lse=lse)
-    hd = padded_dim(hq, hv)
-    out = _launch(*(_pad_heads(t, hd) for t in (q, k, v)), scale, causal, lse=lse)
+    _, dq_, dv_ = forward_dims(q.dtype, hq, hv)
+    if (dq_, dv_) == (hq, hv):
+        return _launch(*(t.contiguous() for t in (q, k, v)), scale, causal, lse=lse)
+    out = _launch(*(_pad_heads(t, dq_) for t in (q, k, v)), scale, causal, lse=lse)
     return _head_slice(out, q.shape[2], hv)
 
 
 def _launch(q, k, v, scale, causal: bool, lse=None):
     """Check the operands and launch the kernel of :func:`route`; with
-    ``lse`` ((B, H, S) f32) the kernel also writes each row's log-sum-exp."""
-    B, S, H, hd = q.shape
-    T, hkv = k.shape[1], k.shape[2]
-    _check(q, k, v)
+    ``lse`` ((B, H, S) f32) the kernel also writes each row's log-sum-exp.
+    The tensor-core kernel takes scratch for its fp16 copy of v and each
+    key tile's scale exponent."""
+    B, S, H, hq = q.shape
+    T, hkv, hv = k.shape[1], k.shape[2], v.shape[-1]
+    wgmma = route(q.dtype, hq, hv) == "wgmma"
+    _check(q, k, v, WGMMA_DIMS if wgmma else None)
     if lse is not None:
         check_operand("lse", lse, (B, H, S), q.device)
-    out = torch.empty((B, S, H * hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, S, H * hv), dtype=torch.float32, device=q.device)
     if B * S * H == 0:
         return out
     if T == 0:
         raise ValueError("attention over zero keys")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = 0 if lse is None else lse.data_ptr()
-    if route(q.dtype, hd) == "wgmma":
+    if wgmma:
+        # the kernel's plan from the shapes: an fp16 copy of v, each key tile
+        # with its scale exponent, or v converted in shared memory
+        lib = build.library()
+        v16 = vexp = None
+        if lib.repro_flash_attn_sm90_plan(B, S, H):
+            v16 = torch.empty(v.shape, dtype=torch.float16, device=q.device)
+            vexp = torch.empty(B * hkv * -(-T // _V16_TILE), dtype=torch.int32, device=q.device)
+            _aligned(v16=v16)
         _aligned(q=q, k=k, v=v, out=out)
-        rc = build.library().repro_flash_attn_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
-            B, S, T, H, hkv, hd, float(scale), int(causal), stream,
+        rc = lib.repro_flash_attn_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (v16, vexp)),
+            out.data_ptr(), lse_ptr, B, S, T, H, hkv, hq, hv, float(scale), int(causal), stream,
         )
         build.check("flash_attn (wgmma)", rc)
         attention.wgmma_launches += 1
+        if hq != hv:
+            attention.mla_forward_launches += 1
     else:
         rc = build.library().repro_flash_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
-            B, S, T, H, hkv, hd, float(scale), int(causal), _DTYPES[q.dtype], stream,
+            B, S, T, H, hkv, hq, float(scale), int(causal), _DTYPES[q.dtype], stream,
         )
         build.check("flash_attn", rc)
     attention.launches += 1
@@ -372,4 +403,5 @@ def _launch(q, k, v, scale, causal: bool, lse=None):
 attention.launches = 0  # every forward launch, both routes
 attention.wgmma_launches = 0  # the tensor-core route's share
 attention.backward_launches = 0  # every attention_backward launch, both routes
+attention.mla_forward_launches = 0  # the tensor-core forward's (96, 64) instance
 attention.mla_backward_launches = 0  # the tensor-core backward's (96, 64) instance

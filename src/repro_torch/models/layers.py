@@ -577,8 +577,9 @@ def attend(q, k, v, scale, out_dtype, *, causal: bool = True):
     version on CPU and ``meta`` tensors), or :func:`chunked_attention` on
     CPU and ``meta`` tensors longer than ``ATTN_CHUNK_THRESHOLD``; DTensors
     go through :func:`_attend_heads`.  MLA's unequal dims (96 for q.k, 64
-    for v) go to the kernel as they are: ``flash.attention`` pads them where
-    a kernel needs it (the forward), and its backward takes them unpadded.
+    for v) go to the kernels as they are: the tensor-core forward and
+    backward take them unpadded (``flash.attention`` pads only for the FMA
+    kernels).
     """
     if _is_dtensor(q):
         return _attend_heads(q, k, v, scale, out_dtype, causal)

@@ -56,7 +56,8 @@ def inputs(dev, B, S, T, H, hkv, hq, hv, causal):
                for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
     do = torch.as_tensor(rng.standard_normal((B, S, H * hv)).astype(np.float32), device=dev)
     scale = 1.0 / np.sqrt(hq)
-    if hq != hv and (hq, hv) not in getattr(flash, "WGMMA_BWD_DIMS", ()):
+    dims = getattr(flash, "WGMMA_DIMS", getattr(flash, "WGMMA_BWD_DIMS", ()))
+    if hq != hv and (hq, hv) not in dims:
         hd = 128  # a wrapper without the native instance: MLA padded, as its attend did
         q, k, v = (F.pad(t, (0, hd - t.shape[-1])).contiguous() for t in (q, k, v))
         do = F.pad(do.reshape(B, S, H, hv), (0, hd - hv)).reshape(B, S, H * hd).contiguous()

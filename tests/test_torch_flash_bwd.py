@@ -284,7 +284,8 @@ def test_unequal_dims_through_attend_and_the_function_equal_the_padded_route(cas
 ])
 def test_route_and_padded_dim_of_unequal_dims(dtype, hq, hv, want, padded):
     """``route`` decides from the dtype and both head dims alone: bf16 at (64,
-    64), (128, 128) and MLA's (96, 64) on the tensor cores (the forward on
-    q, k, v padded to ``padded_dim``, the backward unpadded), all else FMA."""
+    64), (128, 128) and MLA's (96, 64) on the tensor cores (forward and
+    backward on q, k, v unpadded), all else FMA (on q, k, v padded to
+    ``padded_dim`` where their dims differ)."""
     assert flash.route(dtype, hq, hv) == want
     assert flash.padded_dim(hq, hv) == padded
