@@ -129,9 +129,13 @@
    recorded on both, and each (token, layer) set whose experts differ must
    have a CPU router-logit margin (k-th minus (k+1)-th) of at most twice
    that token's router-logit error.  Qwen2-VL also runs ``forward_train`` with 1,024
-   vision patches at distinct M-RoPE streams (B=1, S=1,088, 1 layer) and
+   vision patches at distinct M-RoPE streams (B=1, S=1,088, 2 layers) and
    Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers) against the
-   CPU.  Then each is served through ``repro_torch.launch.serve.main``
+   CPU; on the same draw and input Qwen2-VL's loss and every gradient, as
+   the training phases hold them (``check_train_card_vs_cpu``: within
+   2e-2, every attention projection's and ``vision_proj``'s gradient
+   nonzero, ``flash_attn`` launched twice and its backward once a layer,
+   all on the tensor cores).  Then each is served through ``repro_torch.launch.serve.main``
    (``--layers``, the deepest whose draw stays under ``DRAW_BUDGET_GIB``,
    where the full depth does not): 4 requests of 32 tokens in
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
@@ -152,22 +156,30 @@
    greedy tokens, one ``forward_train`` at B=1, S=2,048, ``flash_attn``
    launched once an attention sublayer (2).  Whisper against the CPU at 2 +
    2 layers: ``encode`` of 4 x 1,500 stub frames, ``decode_train`` of 4 x 32
-   tokens and a request's decode-step logits, each within 2e-2; served at 24
-   + 24 layers: ``encode``, ``build_cross_cache``, a 4-token prompt as decode
-   steps and 8 greedy tokens, ``flash_attn`` launched 24 times, non-causal.
+   tokens and a request's decode-step logits, each within 2e-2, then on the
+   same draw the loss and every gradient of 2 x 256 tokens over 2 x 1,500
+   frames (``check_train_card_vs_cpu``; the key biases, 0 in exact
+   arithmetic without a rotation, below 1e-3 of the largest gradient entry
+   on both sides; the cross attention's q/k/v biases unread on both, as in
+   the reference; every other attention projection's gradient nonzero, the
+   cross attention's included; ``flash_attn`` twice and its backward once
+   an attention layer of the encoder, the decoder and the cross attention);
+   served at 24 + 24 layers: ``encode``, ``build_cross_cache``, a 4-token
+   prompt as decode steps and 8 greedy tokens, ``flash_attn`` launched 24
+   times, non-causal.
 13. Train (``train``): Qwen1.5-0.5B at full width and 2 layers on the
    card against the CPU from one seed-0 draw: loss and every gradient within
    2e-2, every attention projection's gradient nonzero, ``flash_attn``
    launched 4 times and its backward twice.  Then
-   Qwen1.5-0.5B at full width and depth (24 layers) through
-   ``repro_torch.train.trainer.Trainer``: batch 8 x 2,048 in 2 microbatches,
-   ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``, 6 steps with
-   a checkpoint at step 4, then a restart from that checkpoint to step 6:
-   the restarted losses within 1e-5 relative of the uninterrupted ones, the
-   last loss below the first, and ``flash_attn`` launched 24 x 2 x 2 = 96
-   times a step (forward and remat recompute) and its backward kernel 48
-   times (one a differentiated forward; every training run below is held
-   to the same counts, ``_require_launches``).  The counters are set to 0
+   Qwen1.5-0.5B at full width and ``TRAIN_LAYERS`` = 12 of its 24 layers
+   through ``repro_torch.train.trainer.Trainer``: batch 8 x 2,048 in 2
+   microbatches, ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``,
+   6 steps with a checkpoint at step 4, then a restart from that checkpoint
+   to step 6: the restarted losses within 1e-5 relative of the
+   uninterrupted ones, the last loss below the first, and ``flash_attn``
+   launched 12 x 2 x 2 = 48 times a step (forward and remat recompute) and
+   its backward kernel 24 times (one a differentiated forward; every
+   training run below is held to the same counts, ``_require_launches``).  The counters are set to 0
    before the Trainer runs and read after them.  Prints each step's loss,
    ms, tokens/s, peak memory and launches (the steps are timed without the
    profiler), then the device's busy share of one more step under
@@ -202,7 +214,20 @@
    checkpoint format; ``FAMILY_SMOKE`` says why not at full width).  Last
    ``python -m repro_torch.launch.train --arch <arch> --smoke --steps 2``
    (``run_train_launcher``), held by ``_launcher_counts``; the smoke
-   configs' head dims take the FMA route.
+   configs' head dims take the FMA route.  Then the VLM and the
+   encoder-decoder (``TRAIN_INPUT_FAMILIES``, held against the CPU in phase
+   ``lm_families``) through ``make_train_step`` (``train_with_inputs``: the
+   Trainer, as the reference's, feeds tokens and labels alone): Qwen2-VL-7B
+   at its trained depth, each sequence of 2,048 tokens carrying 1,024 vision
+   patches after its first 32 and their M-RoPE grid; Whisper-medium at 24 +
+   24 layers, 8 x 448 tokens over 8 x 1,500 stub frames; each from a seed-0
+   f32 draw, AdamW at ``FAMILY_LR``, 4 steps in 2 microbatches, the loss
+   falling, the step peak within ``DRAW_BUDGET_GIB``, ``flash_attn``
+   attention layers x 2 x 2 times a step and its backward half as often,
+   every launch of both on the tensor cores; the busy share and the
+   microbatch split as above; and Qwen2-VL's launcher on its smoke config
+   (text only, as the reference's).  No restart at full width: the state
+   format and the restore are the family-independent ones held above.
 15. Train mesh (``train_mesh``): training over ranks with phase train's
    model and settings cut to ``MESH_LAYERS`` = 2 of 24 layers (full width).
    First the one-process run: that model on this process, 5 steps (its
@@ -251,7 +276,7 @@
    ms, calls and bytes by kind; step 3 runs as a user's would, uncounted
    and unprofiled.
 17. Dry run (``dryrun``), in a process of its own on this machine's CPU,
-   started before phase ``lm`` and read after ``train_tp``:
+   started before phase ``train`` and read after ``train_tp``:
    ``launch.dryrun.lower_cell`` for ``DRYRUN_CELLS`` and
    ``lower_em_cell`` on the (16, 16) and (2, 16, 16)
    meshes of a ``fake`` process group; each record's parameters, active
@@ -495,6 +520,7 @@ def _zero_counts() -> None:
         w.launches = 0
     _wrappers()["flash_attn"].wgmma_launches = 0
     _wrappers()["flash_attn"].backward_launches = 0
+    _wrappers()["flash_attn"].wgmma_backward_launches = 0
     _wrappers()["icm_sweep"].rows = 0
 
 
@@ -640,8 +666,10 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         torch.cuda.synchronize()
         if tol is None:  # exact: integer outputs
             require(torch.equal(got, want), f"{name} {shape}: kernel and plain version differ")
-        else:
-            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+        else:  # numpy's assert_allclose, on the card: |got - want| <= atol + rtol |want|
+            close = torch.isclose(got, want, equal_nan=True, **tol)
+            require(bool(close.all()), f"{name} {shape}: {int((~close).sum())} of {close.numel()} "
+                    f"outputs differ from the plain version's beyond {tol}")
         ms, call_ms = time_ms(kernel, iters)
         row = dict(
             name=name, shape=shape,
@@ -768,6 +796,8 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
                 4 * (N * D + H * D + N * H), H * int(present.sum()), PEAK_INT32_OPS,
             )
 
+    # inputs drawn on the card (numpy's draws of these shapes took seconds)
+    gen = torch.Generator(device=dev).manual_seed(0)
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
     # 64; then every shape the lm_families phase sends: MiniCPM3's MLA long
@@ -810,6 +840,18 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (8, 256, 256, 4, 4, 32, torch.bfloat16, True, (24, 16)),
         (2, 256, 256, 16, 16, 64, torch.bfloat16, True, None),
         (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True, None),
+        # train_families' VLM and encoder-decoder: Qwen2-VL's microbatch (a
+        # GQA group of 7), Whisper's decoder over 448 text tokens and its
+        # cross attention over 1,500 frames (its encoder's is the served
+        # row above), their card-vs-CPU checks (Qwen2-VL's is the vision
+        # forward's row above, Whisper's decoder the B=2, S=256 row), and
+        # Qwen2-VL's launcher smoke config (hd 16, 4/2 heads)
+        (4, 2048, 2048, 28, 4, 128, torch.bfloat16, True, None),
+        (4, 448, 448, 16, 16, 64, torch.bfloat16, True, None),
+        (4, 448, 1500, 16, 16, 64, torch.bfloat16, False, None),
+        (2, 1500, 1500, 16, 16, 64, torch.bfloat16, False, None),
+        (2, 256, 1500, 16, 16, 64, torch.bfloat16, False, None),
+        (8, 256, 256, 4, 2, 16, torch.bfloat16, True, None),
         *[(2, S_, S_, H_, k_, d_, torch.float32, c, None)
           for S_, H_, k_, d_ in [(128, 4, 2, 32), (256, 2, 2, 64), (192, 4, 1, 32)]
           for c in (True, False)],
@@ -821,10 +863,8 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         # MLA: q, k and v at their own dims, as the path sends them (hd is
         # the FMA route's padded dim and SDPA's)
         hq, hv = mla or (hd, hd)
-        q, k, v = (
-            put(rng.standard_normal((B, n, h, d)).astype(np.float32)).to(dtype)
-            for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)]
-        )
+        q, k, v = (torch.randn((B, n, h, d), generator=gen, device=dev).to(dtype)
+                   for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
         scale = 1.0 / np.sqrt(hq)
         # (row, col) score pairs this input needs: all, or col <= row under the mask
         pairs = sum(min(r + 1, T) for r in range(S)) if causal else S * T
@@ -2084,17 +2124,41 @@ LM_REL_TOL = 2e-2
 # step peak stays within DRAW_BUDGET_GIB in the script, beside the ~1 GiB the
 # earlier phases keep allocated (MiniCPM3 at 33 layers peaked at 74.25 GiB
 # there, 73.64 alone; ``--train-depth`` measures a depth alone: Moonlight at
-# 3 layers runs out of memory in its first step)
+# 3 layers runs out of memory in its first step), but MiniCPM3's, cut from
+# its deepest 32 to 16 to keep the whole script within its time limit
+# (``--train-depth minicpm3_4b:32`` trains the deepest)
 TRAIN_FAMILIES = [
     ("moonshot_v1_16b_a3b", 2, 2),
-    ("minicpm3_4b", 2, 32),
+    ("minicpm3_4b", 2, 16),
 ]
 
 
+_STAGE: list = []  # the page-locked buffer of ``_tree_to``'s copies to the CPU
+
+
 def _tree_to(tree, device):
+    """``tree`` with every leaf on ``device``.  A leaf on the card bound for
+    the CPU goes through one page-locked buffer in 256 MiB pieces, which the
+    card machine's host copies on about twice as fast as ``.to("cpu")``
+    into pageable memory (``tests/host_copy_probe.py``); the card-vs-CPU
+    checks wait on these copies."""
+    import torch
+
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    if not (tree.is_cuda and torch.device(device).type == "cpu"):
+        return tree.to(device)
+    if not _STAGE:
+        _STAGE.append(torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True))
+    stage = _STAGE[0]
+    out = torch.empty(tree.shape, dtype=tree.dtype)
+    src = tree.detach().contiguous().view(-1).view(torch.uint8)
+    dst = out.view(-1).view(torch.uint8)
+    for i in range(0, src.numel(), stage.numel()):
+        k = min(stage.numel(), src.numel() - i)
+        stage[:k].copy_(src[i:i + k])
+        dst[i:i + k].copy_(stage[:k])
+    return out
 
 
 def _free(dev) -> None:
@@ -2109,7 +2173,8 @@ def _free(dev) -> None:
 
 def _models_on_both(dev, api):
     """The model on ``dev`` and on the CPU from one draw of its weights
-    (``init_params`` seed 0 on ``dev``, copied to the CPU)."""
+    (``init_params`` seed 0 on ``dev``, copied to the CPU), and the drawn
+    tree on ``dev`` (for a training check on the same weights)."""
     import torch
 
     from repro_torch.models.param import init_params
@@ -2117,8 +2182,7 @@ def _models_on_both(dev, api):
     tree = init_params(api.param_specs(), seed=0, device=dev)
     card = api.load(tree)
     host = api.load(_tree_to(tree, torch.device("cpu")))
-    del tree
-    return card, host
+    return card, host, tree
 
 
 @contextlib.contextmanager
@@ -2210,7 +2274,7 @@ def lm_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 32, steps: int = 
     api = get_model(cfg)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    card, host = _models_on_both(dev, api)
+    card, host, _ = _models_on_both(dev, api)
     rng = np.random.default_rng(13)
     toks = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
     s_max = prompt_len + steps
@@ -2268,43 +2332,45 @@ def _logits_rel(want_h, got_h, api_mod, cfg, models, every: int) -> tuple[float,
     return err_h, float((lg - lw).abs().max()) / float(lw.abs().max())
 
 
-def vlm_forward_card_vs_cpu(dev, cfg, text: int = 32) -> dict:
-    """``forward_train`` with ``cfg.vision_patches`` patches (a square grid
-    of one frame) between two runs of ``text`` tokens, M-RoPE streams as
-    Qwen2-VL lays them out: text (i, i, i); patches (t0, t0 + row, t0 + col);
-    the text after resumes at the largest position + 1."""
-    import torch
-
-    from repro_torch.models import transformer
-    from repro_torch.models.registry import get_model
-
-    api = get_model(cfg)
-    t0 = time.perf_counter()
-    card, host = _models_on_both(dev, api)
+def vlm_inputs(cfg, batch: int, S: int, text: int, rng) -> dict:
+    """The VLM's inputs beside its tokens, for ``batch`` sequences of ``S``:
+    ``cfg.vision_patches`` patch embeddings drawn N(0, 0.3) from ``rng``
+    (as ``demo_batch`` draws them), placed after ``text`` tokens as a square
+    grid of one frame (``vision_pos``), and the M-RoPE streams as Qwen2-VL
+    lays them out (``positions`` (3, B, S)): text (i, i, i); patches (t0,
+    t0 + row, t0 + col); the text after resumes at the largest position + 1."""
     P = cfg.vision_patches
     side = int(round(P ** 0.5))
-    require(side * side == P, f"{P} patches do not form a square grid")
-    S = text + P + text
+    require(side * side == P and text + P <= S,
+            f"{P} patches do not form a square grid after {text} of {S} tokens")
+    grid = np.arange(P)
+    pos3 = np.zeros((3, S), np.int32)
+    pos3[:, :text] = np.arange(text)
+    pos3[0, text:text + P] = text
+    pos3[1, text:text + P] = text + grid // side
+    pos3[2, text:text + P] = text + grid % side
+    pos3[:, text + P:] = pos3[:, :text + P].max() + 1 + np.arange(S - text - P)
+    return dict(
+        vision_embeds=rng.normal(0, 0.3, (batch, P, cfg.vision_dim)).astype(np.float32),
+        vision_pos=np.broadcast_to(text + grid, (batch, P)).astype(np.int32),
+        positions=np.broadcast_to(pos3[:, None], (3, batch, S)).astype(np.int32))
+
+
+def vlm_forward_card_vs_cpu(dev, cfg, text: int = 32) -> dict:
+    """``forward_train`` with ``cfg.vision_patches`` patches between two runs
+    of ``text`` tokens (``vlm_inputs``) on the card and the CPU from one
+    seed-0 draw, inside the loss and every gradient of that input
+    (``train_card_vs_cpu``, under ``train``): one pass a side gives the
+    hidden states, the logits at every 17th position and the gradients."""
+    S = text + cfg.vision_patches + text
     rng = np.random.default_rng(17)
     toks = rng.integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
-    grid = np.arange(P)
-    pos3 = np.zeros((3, 1, S), np.int32)
-    pos3[:, 0, :text] = np.arange(text)
-    pos3[0, 0, text:text + P] = text
-    pos3[1, 0, text:text + P] = text + grid // side
-    pos3[2, 0, text:text + P] = text + grid % side
-    nxt = pos3[:, 0, :text + P].max() + 1
-    pos3[:, 0, text + P:] = nxt + np.arange(text)
-    extra = dict(vision_embeds=rng.normal(0, 0.3, (1, P, cfg.vision_dim)).astype(np.float32),
-                 vision_pos=(text + grid)[None].astype(np.int32))
-    hidden = []
-    for d, model in [(torch.device("cpu"), host), (dev, card)]:
-        h, _ = transformer.forward_train(
-            cfg, model, torch.as_tensor(toks, device=d), torch.as_tensor(pos3, device=d),
-            {k: torch.as_tensor(v, device=d) for k, v in extra.items()})
-        hidden.append(h)
-    rel_h, rel = _logits_rel(hidden[0], hidden[1], transformer, cfg, (host, card), every=17)
-    return dict(S=S, rel_h=rel_h, rel=rel, seconds=time.perf_counter() - t0)
+    data = dict(tokens=toks, **vlm_inputs(cfg, 1, S, text, rng),
+                labels=rng.integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32))
+    t0 = time.perf_counter()
+    cmp = train_card_vs_cpu(dev, cfg, data=data, hidden_every=17, f32_products=True)
+    return dict(S=S, rel_h=cmp.pop("rel_h"), rel=cmp.pop("rel_logits"),
+                seconds=time.perf_counter() - t0, train=cmp)
 
 
 def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
@@ -2316,7 +2382,7 @@ def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
 
     api = get_model(cfg)
     t0 = time.perf_counter()
-    card, host = _models_on_both(dev, api)
+    card, host, _ = _models_on_both(dev, api)
     toks = np.random.default_rng(19).integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
     hidden = [ssm_lm.forward_train(cfg, m, torch.as_tensor(toks, device=d))
               for d, m in [(torch.device("cpu"), host), (dev, card)]]
@@ -2564,7 +2630,7 @@ def hybrid_card_vs_cpu(dev, cfg, batch: int = 4, prompt_len: int = 4, new: int =
     api = get_model(cfg)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    card, host = _models_on_both(dev, api)
+    card, host, _ = _models_on_both(dev, api)
     rng = np.random.default_rng(23)
     prompt = rng.integers(1, cfg.vocab_size - 1, (batch, prompt_len)).astype(np.int32)
     toks = rng.integers(1, cfg.vocab_size - 1, (1, train_len)).astype(np.int32)
@@ -2646,7 +2712,9 @@ def encdec_card_vs_cpu(dev, cfg, batch: int = 4, text: int = 32, prompt_len: int
     """The encoder-decoder on the card and on the CPU from one draw:
     ``encode`` of stub frames, ``decode_train`` over each run's own memory,
     and a request's decode steps (cross cache, prompt, greedy; the CPU fed the
-    card's tokens)."""
+    card's tokens); then, on the same weights, the loss and every gradient
+    of 2 x 256 text tokens over 2 x ``encoder_frames`` stub frames
+    (``train_card_vs_cpu``, under ``train``)."""
     import torch
 
     from repro_torch.models import encdec
@@ -2654,7 +2722,7 @@ def encdec_card_vs_cpu(dev, cfg, batch: int = 4, text: int = 32, prompt_len: int
 
     api = get_model(cfg)
     t0 = time.perf_counter()
-    card, host = _models_on_both(dev, api)
+    card, host, tree = _models_on_both(dev, api)
     frames = _stub_frames(cfg, batch, 29)
     rng = np.random.default_rng(31)
     toks = rng.integers(1, cfg.vocab_size - 1, (batch, text)).astype(np.int32)
@@ -2671,6 +2739,13 @@ def encdec_card_vs_cpu(dev, cfg, batch: int = 4, text: int = 32, prompt_len: int
     res["train_rel_h"], res["train_rel"] = _logits_rel(hidden[1], hidden[0], encdec, cfg,
                                                        (host, card), every=4)
     res["seconds"] = time.perf_counter() - t0
+    del card, host, runs, hidden, mem_card, mem_cpu
+    _free(dev)
+    B, S = 2, min(256, cfg.max_position_embeddings)  # a smoke config's positions end sooner
+    data = dict(tokens=rng.integers(1, cfg.vocab_size - 1, (B, S)).astype(np.int32),
+                labels=rng.integers(1, cfg.vocab_size - 1, (B, S)).astype(np.int32),
+                frames=_stub_frames(cfg, B, 37))
+    res["train"] = train_card_vs_cpu(dev, cfg, tree=tree, data=data, f32_products=True)
     return res
 
 
@@ -2791,6 +2866,9 @@ def decode_only_family(dev, arch: str, cmp_layers: int, serve_layers: int,
         f"tokens compared {cmp['compared']} of {cmp['tokens']}, all equal ({cmp['seconds']:.1f} s)")
     require(max(rels) <= LM_REL_TOL, f"{arch}: card vs CPU beyond {LM_REL_TOL}: {rels}")
     require(cmp["compared"] >= 1, f"{arch}: no greedy token was clear enough to compare")
+    if not hybrid:
+        check_train_card_vs_cpu(dev, "lm_families", dataclasses.replace(
+            full, n_layers=cmp_layers, encoder_layers=cmp_layers), cmp["train"])
     _free(dev)
 
     res = decode_only_serve(dev, arch, serve_layers, max_new)
@@ -2849,20 +2927,22 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
         require(cmp["compared"] >= 1, f"{arch}: no greedy token was clear enough to compare")
         _free(dev)
         if full.vision_dim:
-            fw = vlm_forward_card_vs_cpu(dev, dataclasses.replace(full, n_layers=1))
+            fw = vlm_forward_card_vs_cpu(dev, cfg)
         elif full.family == "ssm":
             fw = ssm_forward_card_vs_cpu(dev, cfg)
         else:
             fw = None
         if fw is not None:
             log(f"[lm_families] {full.name} forward_train, card vs CPU at "
-                f"{1 if full.vision_dim else cmp_layers} layer(s), B=1, S={fw['S']}"
+                f"{cmp_layers} layer(s), B=1, S={fw['S']}"
                 + (f" ({full.vision_patches} vision patches of {full.vision_dim}, distinct "
                    f"M-RoPE streams)" if full.vision_dim else " (chunks of 128)")
                 + f": hidden relative {fw['rel_h']:.3g}, logits relative {fw['rel']:.3g} "
                 f"({fw['seconds']:.1f} s)")
             require(fw["rel"] <= LM_REL_TOL and fw["rel_h"] <= LM_REL_TOL,
                     f"{arch}: forward_train card vs CPU beyond {LM_REL_TOL}")
+            if "train" in fw:
+                check_train_card_vs_cpu(dev, "lm_families", cfg, fw.pop("train"))
             _free(dev)
 
         long = long_len if full.mla else 0
@@ -2909,8 +2989,13 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
     return total
 
 
-# the train phase: Qwen1.5-0.5B (hf:Qwen/Qwen1.5-0.5B) at full width and depth
+# the train phase: Qwen1.5-0.5B (hf:Qwen/Qwen1.5-0.5B) at full width
 TRAIN_ARCH = "qwen1_5_0_5b"
+# the Trainer runs, which write three checkpoints, at 12 of its 24 layers
+# (full width), cut to keep the whole script within its time limit: a
+# checkpoint is 5.57 GB at the full depth, about 3.7 at 12 layers; the
+# launcher in the phase trains all 24
+TRAIN_LAYERS = 12
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 6, 4, 8, 2048, 2
 TRAIN_RESTART_TOL = 1e-5  # relative: the embedding backward's atomics (index_add_)
 FAMILY_STEPS, FAMILY_CKPT_AT = 4, 2  # the train_families phase's Trainer runs
@@ -2928,6 +3013,23 @@ FAMILY_SMOKE = (8, 256)
 # 11.58 -> 14.25 over 4 steps, at 1e-4 it rises at steps 2-3 and ends at 8.72;
 # the card follows the CPU there (tests/train_family_probe.py, PERF.md §6)
 FAMILY_LR = 1e-4
+# the train_families phase's VLM and encoder-decoder: (arch, layers trained,
+# tokens a sequence, lr), each at full width, trained through
+# make_train_step, since their batches carry inputs beside the corpus's tokens
+# and labels that the Trainer, as the reference's, does not feed.  Qwen2-VL's
+# 1,024 vision patches follow its first VLM_TEXT tokens of 2,048; its depth
+# is the deepest whose step peak stays within DRAW_BUDGET_GIB (68.70 GiB at 5
+# layers, 75.64 at 6), and its lr a quarter of FAMILY_LR: at d 3,584 the
+# overshoot FAMILY_LR's comment describes is larger, and at 1e-4 and 5e-5
+# the loss at 5 layers still rose at step 4 (12.61 -> 16.45 and -> 13.23;
+# tests/train_input_family_probe.py).  Whisper-medium decodes 448 tokens (its
+# published text context) over 1,500 stub frames, at full depth.  Both are
+# held against the CPU in phase lm_families
+TRAIN_INPUT_FAMILIES = [
+    ("qwen2_vl_7b", 5, 2048, FAMILY_LR / 4),
+    ("whisper_medium", 24, 448, FAMILY_LR),
+]
+VLM_TEXT = 32  # text tokens before the vision patches
 # The tensor-core forward's phase-2 ms before its redesign around one fp16
 # P.V product and MLA's (96, 64) instance, from PERF.md's kernel table:
 # (B, S, T, H, Hkv, hd, MLA dims) -> ms ("NVIDIA H100 80GB HBM3, 700.00 W";
@@ -2967,6 +3069,17 @@ FLASH_GRAD_SHAPES = [
     ("launcher smoke", 4, 256, 256, 4, 4, 16, "bf16", True, None),
     ("Moonlight launcher smoke", 8, 256, 256, 4, 4, 16, "bf16", True, None),
     ("MiniCPM3 launcher smoke MLA", 8, 256, 256, 4, 4, 32, "bf16", True, (24, 16)),
+    # train_families' VLM and encoder-decoder (a GQA group of 7; a ragged
+    # non-causal S = T = 1,500; 7 query tiles over 24 key tiles), their
+    # card-vs-CPU checks and Qwen2-VL's launcher smoke config
+    ("Qwen2-VL train", 4, 2048, 2048, 28, 4, 128, "bf16", True, None),
+    ("Qwen2-VL card vs CPU", 1, 1088, 1088, 28, 4, 128, "bf16", True, None),
+    ("Whisper encoder", 4, 1500, 1500, 16, 16, 64, "bf16", False, None),
+    ("Whisper decoder", 4, 448, 448, 16, 16, 64, "bf16", True, None),
+    ("Whisper cross train", 4, 448, 1500, 16, 16, 64, "bf16", False, None),
+    ("Whisper encoder card vs CPU", 2, 1500, 1500, 16, 16, 64, "bf16", False, None),
+    ("Whisper cross card vs CPU", 2, 256, 1500, 16, 16, 64, "bf16", False, None),
+    ("Qwen2-VL launcher smoke", 8, 256, 256, 4, 2, 16, "bf16", True, None),
     ("fma GQA", 2, 128, 128, 4, 2, 32, "f32", True, None),
     ("fma full", 2, 256, 256, 2, 2, 64, "f32", False, None),
     ("fma ragged S < T", 2, 40, 100, 4, 2, 8, "f32", True, None),
@@ -3040,12 +3153,11 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
     from repro_torch.models import layers
 
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
-    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)  # drawn on the card, as phase 2's
     hq, hv = mla or (hd, hd)
-    q, k, v = (torch.as_tensor(rng.standard_normal((B, n, h, d)).astype(np.float32),
-                               device=dev).to(dt)
+    q, k, v = (torch.randn((B, n, h, d), generator=gen, device=dev).to(dt)
                for n, h, d in [(S, H, hq), (T, hkv, hq), (T, hkv, hv)])
-    do = torch.as_tensor(rng.standard_normal((B, S, H * hv)).astype(np.float32), device=dev)
+    do = torch.randn((B, S, H * hv), generator=gen, device=dev)
     scale = 1.0 / np.sqrt(hq)
     native = mla is not None and flash.route(dt, hq, hv) == "wgmma"
 
@@ -3056,11 +3168,15 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
     require(lse_err <= FLASH_GRAD_TOL, f"{label}: lse differs from the plain version's by "
             f"{lse_err:.3g} > {FLASH_GRAD_TOL}")
     before = flash.attention.backward_launches
+    wgmma_before = flash.attention.wgmma_backward_launches
     mla_before = flash.attention.mla_backward_launches
     got = flash.attention_backward(q, k, v, o, lse, do, scale, causal)
     again = flash.attention_backward(q, k, v, o, lse, do, scale, causal)
     require(flash.attention.backward_launches == before + 2,
             f"{label}: the backward kernel did not launch")
+    on_wgmma = flash.route(dt, hq, hv) == "wgmma"
+    require(flash.attention.wgmma_backward_launches == wgmma_before + (2 if on_wgmma else 0),
+            f"{label}: the backward did not take the {flash.route(dt, hq, hv)} route")
     require(flash.attention.mla_backward_launches == mla_before + (2 if native else 0),
             f"{label}: the backward did not take the (96, 64) instance on unpadded inputs")
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -3137,54 +3253,205 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
         bound_ms=bound_ms, bound_by=bound_by, **padded)
 
 
+def _attention_layers(cfg) -> int:
+    """The attention layers one forward of ``cfg`` runs, each one
+    ``flash_attn`` launch: the encoder-decoder's encoder layers and its
+    decoder's self and cross attention, else one a layer."""
+    return cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+
+
 def _attention_projections(api) -> list[str]:
     """The attention projections of the model's parameter tree, by state-dict
-    name: every leaf under ``layers/attn`` but its norms (Qwen's wq, wk, wv,
-    wo and biases; MLA's q_down, q_up, kv_down, kv_up and wo), each layer."""
-    attn = api.param_specs()["layers"]["attn"]
-    return [f"layers.{i}.attn.{k}" for i in range(api.cfg.n_layers) for k in sorted(attn)
-            if not k.endswith("norm")]
+    name, whose gradients are nonzero in exact arithmetic: every leaf of each
+    layer's attention groups but their norms (Qwen's wq, wk, wv, wo and
+    biases; MLA's q_down, q_up, kv_down, kv_up and wo; the encoder-decoder's
+    encoder, decoder and cross attention), and the VLM's ``vision_proj``.
+    Left out, as ``_zero_grad_leaves`` says: a key bias without a position
+    rotation, and the cross attention's q/k/v biases."""
+    cfg, specs = api.cfg, api.param_specs()
+    if cfg.family == "encdec":
+        groups = [("enc_layers", "attn", cfg.encoder_layers),
+                  ("dec_layers", "self_attn", cfg.n_layers),
+                  ("dec_layers", "cross_attn", cfg.n_layers)]
+    else:
+        groups = [("layers", "attn", cfg.n_layers)]
+    names = [f"{stack}.{i}.{group}.{k}" for stack, group, n in groups for i in range(n)
+             for k in sorted(specs[stack][group]) if not k.endswith("norm")]
+    zero = _zero_grad_leaves(cfg, names)
+    return [n for n in names if n not in zero] + (["vision_proj"] if cfg.vision_dim else [])
 
 
-def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
+def _zero_grad_leaves(cfg, names) -> set[str]:
+    """The leaves among ``names`` whose gradient is 0 in exact arithmetic: the
+    encoder-decoder's cross-attention q/k/v biases, which its training
+    forward does not read (as the reference's ``decode_train``), and a key
+    bias where no rotation follows it (Whisper's): the softmax is
+    shift-invariant, so only rounding moves it."""
+    cross = {"cross_attn.bq", "cross_attn.bk", "cross_attn.bv"}
+    return {n for n in names if any(n.endswith(c) for c in cross)
+            or (not cfg.use_rope and n.endswith("attn.bk"))}
+
+
+# a leaf whose gradient is 0 in exact arithmetic (``_zero_grad_leaves``) is
+# held below this share of the model's largest gradient entry on both
+# sides, as tests/test_torch_train_families.py holds it
+GRAD_FLOOR = 1e-3
+
+
+@contextlib.contextmanager
+def cpu_products_in_f32(on: bool):
+    """With ``on``, every matrix product (``matmul``, ``@``, ``mm``, ``bmm``)
+    inside the block of bf16 tensors on the CPU whose first operand has at
+    least 256 rows runs as the f32 product of its operands, rounded
+    to bf16 once: what a bf16 product on the card or in oneDNN computes
+    (exact products, f32 sums, one rounding), on the CPU's f32 kernels,
+    which run several times faster than its bf16 ones on the card machine's
+    host, which has no bf16 units (``tests/host_copy_probe.py``).  Products
+    with fewer rows (a decode step's) keep the
+    bf16 kernels: converting their weights would cost more than the
+    product.  Products on the card, and in other dtypes, are untouched;
+    autograd's backward of an f32 product is f32 too.  Remat's recompute
+    runs outside the block, so a pass that takes gradients here runs
+    without it (``_no_remat``)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    products = {torch.matmul, torch.mm, torch.bmm, torch.Tensor.__matmul__,
+                torch.Tensor.matmul}
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in products and len(args) == 2 and all(
+                    isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                    and t.dtype == torch.bfloat16 for t in args) \
+                    and args[0].numel() // max(args[0].shape[-1], 1) >= 256:
+                return func(args[0].float(), args[1].float(), **kwargs).to(torch.bfloat16)
+            return func(*args, **kwargs)
+
+    if not on:
+        yield
+        return
+    with Mode():
+        yield
+
+
+@contextlib.contextmanager
+def _no_remat(on: bool):
+    """With ``on``, the layer loops inside the block keep every activation
+    instead of recomputing them in the backward (``stacked_scan`` calls
+    each group directly): the same numbers, as remat changes none."""
+    from repro_torch.models import scan_utils
+
+    if not on:
+        yield
+        return
+    checkpoint = scan_utils.checkpoint
+    scan_utils.checkpoint = lambda fn, *args, use_reentrant=False: fn(*args)
+    try:
+        yield
+    finally:
+        scan_utils.checkpoint = checkpoint
+
+
+@contextlib.contextmanager
+def _hidden_probe(mod, on: bool):
+    """With ``on``, record the hidden states ``mod.forward_train`` returns
+    (detached) in the list it yields."""
+    outs: list = []
+    if not on:
+        yield outs
+        return
+    fn = mod.forward_train
+
+    def call(*args):
+        out = fn(*args)
+        outs.append(out[0].detach())
+        return out
+
+    mod.forward_train = call
+    try:
+        yield outs
+    finally:
+        mod.forward_train = fn
+
+
+def _on(batch: dict, dev) -> dict:
+    """A numpy batch as tensors on ``dev``: the float inputs (patch
+    embeddings, audio frames) in bf16, as ``ModelAPI.input_specs`` declares
+    them."""
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev).to(torch.bfloat16) if v.dtype.kind == "f"
+            else torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
+                      data: dict | None = None, hidden_every: int = 0,
+                      f32_products: bool = False) -> dict:
     """The loss and every gradient of ``cfg`` on the card against the CPU,
-    from one seed-0 draw (every leaf in f32) carried to both, on one
-    ``demo_batch``.  Returns the loss's relative difference, each leaf's
-    max |d| / max |g_cpu| (computed on ``dev``), the largest gradient of
-    each attention projection on the card (``_attention_projections``,
-    whose count is returned too), the ``flash_attn`` forward and backward
-    launches of the card's loss and backward, and the seconds of each
-    side.  MoE: as in ``lm_card_vs_cpu``, the CPU takes the card's routing
+    from one draw carried to both (a seed-0 draw with every leaf in f32, or
+    ``tree``, on ``dev``), on one batch (``demo_batch`` of ``batch`` x
+    ``seq``, or ``data``: numpy, with the family's extra inputs).  Returns
+    the loss's relative difference, each leaf's max |d| / max |g_cpu|
+    (computed on ``dev``; for the leaves of ``_zero_grad_leaves`` instead
+    the larger side's max |g| over the model's largest CPU gradient entry,
+    and the leaves the loss does not read, on both sides), the largest
+    gradient of each attention projection on the card
+    (``_attention_projections``, whose count is returned too), the
+    ``flash_attn`` forward and backward launches of the card's loss and
+    backward and those on the tensor cores, and the seconds of each side.
+    MoE: as in ``lm_card_vs_cpu``, the CPU takes the card's routing
     (experts, drops, slots; its own gates), since one token routed the
     other way moves its whole gradient row to another expert and changes
     every activation downstream of it; both sides' own choices (the
     forward's and the remat recompute's, a layer each) are compared by
-    ``_routing_agreement``."""
+    ``_routing_agreement``.  ``hidden_every`` (a decoder's ``forward_train``):
+    also the hidden states' relative difference, and the logits' at every
+    ``hidden_every``-th position (``rel_h``, ``rel_logits``), recorded in
+    the same pass.  The CPU pass keeps its activations (``_no_remat``; but
+    for MoE, whose CPU routing replays the card's recompute calls too), and
+    with ``f32_products`` takes its products as ``cpu_products_in_f32``."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer
     from repro_torch.models.param import in_f32, init_params
     from repro_torch.models.registry import get_model
 
     api = get_model(cfg)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    tree = init_params(in_f32(api.param_specs()), seed=0, device=dev)
+    if tree is None:
+        tree = init_params(in_f32(api.param_specs()), seed=0, device=dev)
     host_tree = _tree_to(tree, cpu)
-    data = api.demo_batch(ShapeConfig("t", seq, batch, "train"))
-    out, routes, seconds = {}, [], {"draw": time.perf_counter() - t0}
+    if data is None:
+        data = api.demo_batch(ShapeConfig("t", seq, batch, "train"))
+    out, routes, states, seconds = {}, [], [], {"draw": time.perf_counter() - t0}
     for name, d, t in [("card", dev, tree), ("cpu", cpu, host_tree)]:
         t0 = time.perf_counter()
         model = api.load(t, trainable=True)
         names, params = zip(*model.named_parameters())
         _zero_counts()
-        with routing_probe(replay=routes[0] if routes else None) as calls:
-            loss, _ = api.loss(model, {k: torch.as_tensor(v, device=d) for k, v in data.items()})
-            grads = torch.autograd.grad(loss, params)
+        host = d.type == "cpu"
+        with routing_probe(replay=routes[0] if routes else None) as calls, \
+                _hidden_probe(transformer, hidden_every) as hidden, \
+                _no_remat(host and not cfg.n_experts), \
+                cpu_products_in_f32(host and f32_products):
+            loss, _ = api.loss(model, _on(data, d))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
             _sync(d)
+        if hidden_every:
+            with torch.no_grad():
+                h = hidden[0][:, ::hidden_every]
+                hidden.append(transformer.logits_of(cfg, model, h).float().cpu())
+            hidden[0] = hidden[0].float().cpu()
+            states.append(hidden)
         lc = _read_counts()
+        a = _wrappers()["flash_attn"]
         out[name] = (float(loss.detach()), dict(zip(names, grads)),
-                     (lc["flash_attn"], lc["flash_attn_backward"]))
+                     (lc["flash_attn"], lc["flash_attn_backward"], a.wgmma_launches,
+                      a.wgmma_backward_launches))
         routes.append(calls)
         seconds[name] = time.perf_counter() - t0
         del model, params, grads, loss, t
@@ -3194,26 +3461,46 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256) -> dict:
     t0 = time.perf_counter()
     if cfg.n_experts:
         res["routing"] = _routing_agreement(routes[1], routes[0], cfg, 2 * cfg.n_layers)
+    if hidden_every:
+        (h_card, lg), (h_cpu, lw) = states
+        require(bool(torch.isfinite(lg).all()), "device logits are not finite")
+        res["rel_h"] = float((h_card - h_cpu).abs().max()) / float(h_cpu.abs().max())
+        res["rel_logits"] = float((lg - lw).abs().max()) / float(lw.abs().max())
+        del states
     projections = _attention_projections(api)
-    proj = {n: float(card_g[n].abs().max()) for n in projections if n in card_g}
-    rel = {}
+    proj = {n: float(card_g[n].abs().max()) for n in projections if card_g.get(n) is not None}
+    unused = sorted(n for n, g in cpu_g.items() if g is None)
+    require(unused == sorted(n for n, g in card_g.items() if g is None),
+            f"{cfg.name}: the card's and the CPU's losses read different leaves")
+    zero = _zero_grad_leaves(cfg, [n for n in cpu_g if n not in unused])
+    top = max(float(g.abs().max()) for g in cpu_g.values() if g is not None)
+    rel, floor = {}, {}
     for n in list(cpu_g):
-        rel[n] = _rel(card_g.pop(n).float(), cpu_g.pop(n).to(dev))
+        g, w = card_g.pop(n), cpu_g.pop(n)
+        if n in zero:
+            floor[n] = max(float(g.abs().max()), float(w.abs().max())) / top
+        elif g is not None:
+            rel[n] = _rel(g.float(), w.to(dev))
     seconds["compare"] = time.perf_counter() - t0
     del out
     _free(dev)
     return dict(loss=(card_loss, cpu_loss), loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss),
-                rel=rel, proj=proj, n_proj=len(projections), launches=launches,
+                rel=rel, floor=floor, unused=unused, proj=proj, n_proj=len(projections),
+                launches=launches, shape=tuple(data["tokens"].shape),
+                frames=data["frames"].shape[1] if "frames" in data else 0,
+                patches=data["vision_embeds"].shape[1] if "vision_embeds" in data else 0,
                 seconds=seconds, **res)
 
 
-def check_train_card_vs_cpu(dev, tag: str, cfg) -> None:
-    """``train_card_vs_cpu`` of ``cfg``, printed and held: the loss and every
-    gradient leaf within ``LM_REL_TOL`` (MoE: every routing difference a
-    near-tie), every attention projection's gradient nonzero, and
-    ``flash_attn`` launched twice a layer (forward and recompute) and its
-    backward once."""
-    cmp = train_card_vs_cpu(dev, cfg)
+def check_train_card_vs_cpu(dev, tag: str, cfg, cmp: dict | None = None) -> None:
+    """``train_card_vs_cpu`` of ``cfg`` (or its result ``cmp``), printed and
+    held: the loss and every gradient leaf within ``LM_REL_TOL`` (MoE: every
+    routing difference a near-tie; the leaves of ``_zero_grad_leaves``
+    below ``GRAD_FLOOR`` of the largest gradient entry on both sides),
+    every attention projection's gradient nonzero, and ``flash_attn``
+    launched twice an attention layer (forward and recompute) and its
+    backward once, all on the tensor cores."""
+    cmp = cmp or train_card_vs_cpu(dev, cfg)
     seconds = ", ".join(f"{k} {v:.1f}" for k, v in cmp["seconds"].items())
     worst = max(cmp["rel"], key=cmp["rel"].get)
     rt = cmp.get("routing")
@@ -3225,24 +3512,38 @@ def check_train_card_vs_cpu(dev, tag: str, cfg) -> None:
                f"{rt['router_err']:.3g}" if rt else "")
     mla = (f"; q_up {cmp['rel'].get('layers.0.attn.q_up', 0):.3g}, kv_up "
            f"{cmp['rel'].get('layers.0.attn.kv_up', 0):.3g} at layer 0" if cfg.mla else "")
-    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, card vs CPU (B=2, S=256): loss "
+    floor = (f"; {len(cmp['floor'])} leaves 0 in exact arithmetic at most "
+             f"{max(cmp['floor'].values()):.3g} of the largest gradient entry (limit "
+             f"{GRAD_FLOOR})" if cmp["floor"] else "")
+    unused = f"; {len(cmp['unused'])} leaves unread on both sides" if cmp["unused"] else ""
+    B, S = cmp["shape"]
+    inputs = (f"B={B}, S={S}" + (f", {cmp['patches']} vision patches" if cmp["patches"] else "")
+              + (f" over {cmp['frames']} frames" if cmp["frames"] else ""))
+    depth = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.family == "encdec"
+             else f"{cfg.n_layers}")
+    log(f"[{tag}] {cfg.name} at {depth} layers, card vs CPU ({inputs}): loss "
         f"{cmp['loss'][0]:.6f} / {cmp['loss'][1]:.6f} (relative {cmp['loss_rel']:.3g}); "
         f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
-        f"{LM_REL_TOL}{mla}{routing}; attention projections' max |g| on the card: smallest "
-        f"{min(cmp['proj'].values()):.3g} ({min(cmp['proj'], key=cmp['proj'].get)}) of "
-        f"{len(cmp['proj'])}; flash_attn launches {cmp['launches'][0]}, backward "
-        f"{cmp['launches'][1]} (s: {seconds})")
+        f"{LM_REL_TOL}{mla}{floor}{unused}{routing}; attention projections' max |g| on the "
+        f"card: smallest {min(cmp['proj'].values()):.3g} "
+        f"({min(cmp['proj'], key=cmp['proj'].get)}) of {len(cmp['proj'])}; flash_attn "
+        f"launches {cmp['launches'][0]}, backward {cmp['launches'][1]} (tensor cores "
+        f"{cmp['launches'][2]}, {cmp['launches'][3]}) (s: {seconds})")
     require(cmp["loss_rel"] <= LM_REL_TOL,
             f"{cfg.name}: train loss card vs CPU {cmp['loss_rel']:.3g}")
     bad = {n: e for n, e in cmp["rel"].items() if not e <= LM_REL_TOL}
     require(not bad, f"{cfg.name}: gradients card vs CPU over {LM_REL_TOL}: {bad}")
+    bad = {n: e for n, e in cmp["floor"].items() if not e <= GRAD_FLOOR}
+    require(not bad, f"{cfg.name}: gradients that are 0 in exact arithmetic over {GRAD_FLOOR} "
+            f"of the largest: {bad}")
     require(len(cmp["proj"]) == cmp["n_proj"] and all(g > 0 for g in cmp["proj"].values()),
             f"{cfg.name}: an attention projection has no gradient on the card: {cmp['proj']}")
-    layers = cfg.n_layers
-    require(cmp["launches"] == (2 * layers, layers), f"{cfg.name}: flash_attn launched "
-            f"{cmp['launches']} times (forward, backward) in the {layers}-layer loss and "
-            f"backward, expected {(2 * layers, layers)}: forward and recompute, and one "
-            "backward a layer")
+    n = _attention_layers(cfg)
+    want = (2 * n, n, 2 * n, n)
+    require(cmp["launches"] == want, f"{cfg.name}: flash_attn launched {cmp['launches']} "
+            f"times (forward, backward, the same on the tensor cores) in the loss and "
+            f"backward of {n} attention layers, expected {want}: forward and recompute, and "
+            "one backward a layer, all on the tensor cores")
 
 
 def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq: int,
@@ -3374,12 +3675,14 @@ def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq:
             restart_s = time.perf_counter() - t0
         launches = _read_counts()
         wgmma = _wrappers()["flash_attn"].wgmma_launches
+        wgmma_bwd = _wrappers()["flash_attn"].wgmma_backward_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _require_launches(f"{tag} {cfg.name}", records, launches, per_launch, len(records),
-                      wgmma if tensor_cores else None)
-    require(tensor_cores or wgmma == 0,
-            f"{tag} {cfg.name}: {wgmma} flash_attn launches on the tensor cores, expected none")
+                      *((wgmma, wgmma_bwd) if tensor_cores else (None, None)))
+    require(tensor_cores or wgmma == wgmma_bwd == 0,
+            f"{tag} {cfg.name}: {wgmma} flash_attn launches and {wgmma_bwd} backward launches "
+            "on the tensor cores, expected none")
     losses = [x for _, x in full_losses]
     require(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
     summary = (f"[{tag}] {cfg.name}, {cfg.n_layers} layers, remat_group {cfg.remat_group}, "
@@ -3395,10 +3698,7 @@ def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq:
                 f"{cfg.name}: restarted losses differ: {again} vs {full_losses}")
         how = (f"from a copy in host memory ({held.pop('s'):.1f} s to copy; {restart_s:.1f} s: "
                "draw, load, steps" if in_memory else f"({restart_s:.1f} s: restore, steps, save")
-        held.clear()
-        release = getattr(torch._C, "_host_emptyCache", None)  # the page-locked buffer
-        if in_memory and release is not None and dev.type == "cuda":
-            release()
+        held.clear()  # its page-locked buffer stays cached for the next run (``_release_host``)
         summary += (f"; restart at step {ckpt_at} {how}): "
                     f"steps {sorted(again)}, largest relative loss difference from the "
                     f"uninterrupted run {max(diffs.values()):.3g} (limit {TRAIN_RESTART_TOL}: "
@@ -3409,51 +3709,142 @@ def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq:
                 trainer=last_t, resumed=last)
 
 
-def train_step_split(dev, tag: str, run: dict, step: int, micro: int) -> None:
+def train_step_split(dev, tag: str, api, opt_cfg, model, opt, batch: dict, micro: int) -> None:
     """Not counted: the device's busy share of one more step under
     torch.profiler, and how a microbatch's step splits between forward,
     backward (with the remat recompute) and AdamW (host clock,
-    synchronized), on the state ``train_with_restart`` returns."""
+    synchronized), on a trained ``model`` and its AdamW state ``opt`` and a
+    numpy ``batch`` of the run's data."""
     import torch
 
     from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.train_step import make_train_step, split_microbatches
 
-    api, opt_cfg, data = run["api"], run["opt_cfg"], run["trainer"].data
-    model, opt = run["resumed"]["params"], run["resumed"]["opt"]
     step_fn = make_train_step(api, opt_cfg, microbatches=micro)
-    split = {k: torch.as_tensor(v, device=dev) for k, v in
-             split_microbatches(data.batch(step), micro).items()}
+    split = _on(split_microbatches(batch, micro), dev)
     log(f"[{tag}] one more step under torch.profiler: device busy "
         f"{_device_busy(dev, lambda: step_fn(model, opt, split))}")
     del split
-    b = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(step).items()}
-    rows = b["tokens"].shape[0] // micro
-    mb = {k: v[:rows] for k, v in b.items()}
+    rows = batch["tokens"].shape[0] // micro
+    mb = _on({k: v[:, :rows] if k == "positions" else v[:rows] for k, v in batch.items()}, dev)
     params = dict(model.named_parameters())
     _sync(dev)
     t0 = time.perf_counter()
     loss, _ = api.loss(model, mb)
     _sync(dev)
     t1 = time.perf_counter()
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     _sync(dev)
     t2 = time.perf_counter()
-    adamw_update(opt_cfg, params, dict(zip(params, grads)), opt)
+    adamw_update(opt_cfg, params, {n: torch.zeros_like(p) if g is None else g
+                                   for (n, p), g in zip(params.items(), grads)}, opt)
     _sync(dev)
     t3 = time.perf_counter()
     log(f"[{tag}] one microbatch of "
-        f"{rows} x {b['tokens'].shape[1]}: forward {(t1 - t0) * 1e3:.1f} ms, backward (remat "
+        f"{rows} x {batch['tokens'].shape[1]}: forward {(t1 - t0) * 1e3:.1f} ms, backward (remat "
         f"recompute included) {(t2 - t1) * 1e3:.1f} ms; AdamW over "
         f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters "
         f"{(t3 - t2) * 1e3:.1f} ms (host clock, synchronized)")
 
 
+def family_batch(cfg, data, step: int) -> dict:
+    """Step ``step``'s batch of the corpus ``data`` (a ``TokenStream``: its
+    tokens and labels) with ``cfg``'s inputs beside them, drawn from numpy
+    with the step as seed: the VLM's patches and positions after
+    ``VLM_TEXT`` tokens (``vlm_inputs``), the encoder-decoder's stub frames
+    (``_stub_frames``)."""
+    b = data.batch(step)
+    B, S = b["tokens"].shape
+    if cfg.vision_dim:
+        b.update(vlm_inputs(cfg, B, S, VLM_TEXT, np.random.default_rng(step)))
+    if cfg.family == "encdec":
+        b["frames"] = _stub_frames(cfg, B, step)
+    return b
+
+
+def train_with_inputs(dev, tag: str, cfg, steps: int, seq: int, batch: int, micro: int,
+                      lr: float = FAMILY_LR) -> dict:
+    """``cfg`` trained through ``make_train_step`` from a seed-0 draw on
+    ``dev`` (every leaf in f32, zero moments: ``Trainer.init_state``'s),
+    AdamW at ``lr`` warmed up over 2 steps: ``steps`` steps of ``batch``
+    sequences of ``seq`` tokens in ``micro`` microbatches, phase train's
+    corpus with the family's inputs (``family_batch``).  Each step is timed
+    on the host clock (synchronized, no profiler) with its peak memory,
+    ``flash_attn`` launches and gradient norm, and printed as it ends.
+    Held: the launches (``_require_launches``: every forward and backward
+    launch on the tensor cores) and the loss falling.  Returns the records,
+    the launch counts (set to 0 before the steps), and the trained state
+    with what ``train_step_split`` reads."""
+    import torch
+
+    from repro_torch.data.corpus import CorpusConfig, TokenStream
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.models.param import in_f32, init_params
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step, split_microbatches
+    from repro_torch.train.trainer import state_from_tree
+
+    api = get_model(cfg)
+    data = TokenStream(CorpusConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                    seed=0))
+    opt_cfg = OptConfig(lr=lr, warmup_steps=2)
+    step_fn = make_train_step(api, opt_cfg, microbatches=micro)
+    t0 = time.perf_counter()
+    state = state_from_tree(api, init_params(in_f32(api.param_specs()), seed=0, device=dev))
+    model, opt = state["params"], state["opt"]
+    del state
+    _sync(dev)
+    draw_s = time.perf_counter() - t0
+    extra = (f"{cfg.vision_patches} patches" if cfg.vision_dim
+             else f"{cfg.encoder_frames} frames" if cfg.family == "encdec" else "")
+    text = seq - (cfg.vision_patches if cfg.vision_dim else 0)  # a sequence's text tokens
+    a, records = flash.attention, []
+    _zero_counts()
+    for step in range(steps):
+        b = _on(split_microbatches(family_batch(cfg, data, step), micro), dev)
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = a.launches, a.backward_launches
+        t1 = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, b)
+        loss = float(metrics["loss"])
+        _sync(dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        r = dict(ms=ms, loss=loss, grad_norm=float(metrics["grad_norm"]),
+                 launches=a.launches - before[0], backward=a.backward_launches - before[1],
+                 peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+        records.append(r)
+        del b
+        log(f"[{tag}] {cfg.name} step {step + 1}: loss {loss:.6f}, gradient norm "
+            f"{r['grad_norm']:.4g}, {ms:.1f} ms, {batch * text / ms * 1e3:.0f} text tokens/s"
+            + (f" and {batch * int(extra.split()[0]) / ms * 1e3:.0f} {extra.split()[1]}/s"
+               if extra else "")
+            + f", peak {r['peak'] / 2**30:.2f} GiB, flash_attn {r['launches']}, backward "
+            f"{r['backward']}")
+    launches = _read_counts()
+    per_step = _attention_layers(cfg) * micro * 2  # forward and remat recompute
+    _require_launches(f"{tag} {cfg.name}", records, launches, per_step, steps,
+                      a.wgmma_launches, a.wgmma_backward_launches)
+    losses = [r["loss"] for r in records]
+    require(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
+    depth = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.family == "encdec"
+             else f"{cfg.n_layers}")
+    log(f"[{tag}] {cfg.name}, {depth} layers, remat_group {cfg.remat_group}, batch {batch} x "
+        f"{seq} tokens" + (f" ({extra} each)" if extra else "") + f" in {micro} microbatches "
+        f"through make_train_step, lr {lr}: losses {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{steps} steps ({sum(r['ms'] for r in records) / 1e3:.1f} s; the draw {draw_s:.1f} s)")
+    return dict(records=records, launches=launches, api=api, opt_cfg=opt_cfg, model=model,
+                opt=opt, data=data)
+
+
 def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
                 micro: int = TRAIN_MICRO, layers: int | None = None) -> dict:
     """LM training on the card: Qwen1.5-0.5B card against CPU at 2 layers,
-    trained through ``Trainer`` with a restart, and the launcher.  Returns
-    the launch counts of the Trainer runs."""
+    trained through ``Trainer`` with a restart at ``layers`` (default
+    ``TRAIN_LAYERS``), and the launcher at full depth.  Returns the launch
+    counts of the Trainer runs and the launcher."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.sharding import default_remat_group
 
@@ -3461,18 +3852,19 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     base_cfg = get_config(TRAIN_ARCH)
     check_train_card_vs_cpu(dev, "train", dataclasses.replace(base_cfg, n_layers=2))
 
-    n_layers = layers or base_cfg.n_layers
+    n_layers = layers or TRAIN_LAYERS
     cfg = dataclasses.replace(base_cfg, n_layers=n_layers,
                               remat_group=default_remat_group(n_layers))
     try:
         run = train_with_restart(dev, "train", cfg, steps, TRAIN_CKPT_AT, seq, batch, micro)
         launches = run["launches"]
-        train_step_split(dev, "train", run, steps, micro)
+        train_step_split(dev, "train", run["api"], run["opt_cfg"], run["resumed"]["params"],
+                         run["resumed"]["opt"], run["trainer"].data.batch(steps), micro)
         del run
     finally:
         _free(dev)
 
-    per_launch = n_layers * micro * 2
+    per_launch = base_cfg.n_layers * micro * 2  # the launcher's full depth
     args = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(batch), "--seq", str(seq),
             "--microbatches", str(micro), *(["--device", "cpu"] if dev.type != "cuda" else [])]
     t0 = time.perf_counter()
@@ -3485,6 +3877,16 @@ def phase_train(dev, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ, batch: int 
     log(f"[train] launches in the Trainer runs and the launcher: {launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _release_host(dev) -> None:
+    """Return the page-locked host memory PyTorch caches (the full-width
+    restarts' copies, ``train_with_restart(in_memory=True)``) to the system."""
+    import torch
+
+    release = getattr(torch._C, "_host_emptyCache", None)
+    if release is not None and dev.type == "cuda":
+        release()
 
 
 def _head_dims(cfg) -> tuple[int, int]:
@@ -3529,8 +3931,13 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
     checkpoint at ``FAMILY_CKPT_AT`` and a restart from it (the checkpoint
     format; the full-width state's checkpoints would pass the disk the
     card's machine allows a run, see ``FAMILY_SMOKE``); then ``python -m
-    repro_torch.launch.train --arch <arch> --smoke --steps 2``.  Returns the
-    launch counts of the Trainer runs and the launchers."""
+    repro_torch.launch.train --arch <arch> --smoke --steps 2``.  Then the
+    VLM and the encoder-decoder (``TRAIN_INPUT_FAMILIES``, held against the
+    CPU in phase ``lm_families``) through ``make_train_step`` at full width
+    and their trained depth for ``steps`` steps, their step peak within
+    ``DRAW_BUDGET_GIB``, and the VLM's launcher on its smoke config (text
+    only, as the reference's).  Returns the launch counts of the training
+    runs and the launchers."""
     import torch
 
     from repro_torch.configs.base import get_config, smoke_config
@@ -3542,6 +3949,29 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
     if dev.type == "cuda":
         log(f"[train_families] allocated on the card before the phase: "
             f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+
+    def held_peak(name, records, layers):
+        peak = max(r["peak"] for r in records) / 2**30
+        log(f"[train_families] {name} trained at {layers} layers: step peak {peak:.2f} GiB "
+            f"(limit {DRAW_BUDGET_GIB})")
+        require(peak <= DRAW_BUDGET_GIB, f"{name}: step peak {peak:.2f} GiB over "
+                f"{DRAW_BUDGET_GIB}")
+
+    def launcher(arch):
+        """``python -m repro_torch.launch.train --arch <arch> --smoke --steps
+        2`` in this process; its smoke config's head dims pick the route."""
+        smoke = smoke_config(arch)
+        tensor_cores = flash.route(torch.bfloat16, *_head_dims(smoke)) == "wgmma"
+        args = ["--arch", arch, "--smoke", "--steps", "2",
+                *(["--device", "cpu"] if dev.type != "cuda" else [])]
+        t0 = time.perf_counter()
+        lines, counts = run_train_launcher(args)
+        lc = _launcher_counts(counts, f"{arch} launcher", smoke.n_layers * 2, 2, tensor_cores)
+        log(f"[train_families] python -m repro_torch.launch.train {' '.join(args)} (in this "
+            f"process): {time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+        _count_into(total, lc)
+        _free(dev)
+
     for arch, cmp_layers, train_layers in TRAIN_FAMILIES:
         t_arch = time.perf_counter()
         full = get_config(arch)
@@ -3569,17 +3999,10 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
             require(native == (backward if on_card else 0),
                     f"{arch}: {native} of {backward} attention backward launches took the "
                     "(96, 64) instance; every MLA launch should")
-            if full.mla:
-                step_ms = [r["ms"] for r in run["records"][1:]]
-                log(f"[train_families] {full.name} at {train_layers} layers: steps after the "
-                    f"first {min(step_ms):.1f}-{max(step_ms):.1f} ms (1,825.1-1,841.7 ms with "
-                    "the forward padded to hd 128)")
-            peak = max(r["peak"] for r in run["records"]) / 2**30
-            log(f"[train_families] {full.name} trained at {train_layers} of {full.n_layers} "
-                f"layers: step peak {peak:.2f} GiB (limit {DRAW_BUDGET_GIB})")
-            require(peak <= DRAW_BUDGET_GIB,
-                    f"{arch}: step peak {peak:.2f} GiB over {DRAW_BUDGET_GIB}")
-            train_step_split(dev, "train_families", run, steps, micro)
+            held_peak(full.name, run["records"], train_layers)
+            train_step_split(dev, "train_families", run["api"], run["opt_cfg"],
+                             run["resumed"]["params"], run["resumed"]["opt"],
+                             run["trainer"].data.batch(steps), micro)
             _count_into(total, run["launches"])
             del run
 
@@ -3591,17 +4014,29 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
                                  s_batch, 1, tensor_cores=tensor_cores)
         _count_into(total, run["launches"])
         del run
-        args = ["--arch", arch, "--smoke", "--steps", "2",
-                *(["--device", "cpu"] if dev.type != "cuda" else [])]
-        t0 = time.perf_counter()
-        lines, counts = run_train_launcher(args)
-        lc = _launcher_counts(counts, f"{arch} launcher", smoke.n_layers * 2, 2, tensor_cores)
-        log(f"[train_families] python -m repro_torch.launch.train {' '.join(args)} (in this "
-            f"process): {time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
-        _count_into(total, lc)
-        _free(dev)
+        launcher(arch)
         log(f"[train_families] {full.name}: {time.perf_counter() - t_arch:.1f} s in all")
-    log(f"[train_families] launches in the Trainer runs and the launchers: {total}; phase "
+    # PyTorch keeps a restart's page-locked block cached, so the second
+    # family's restart may reuse the first's; both are returned here
+    _release_host(dev)
+
+    for arch, train_layers, text, lr in TRAIN_INPUT_FAMILIES:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=train_layers,
+                                  remat_group=default_remat_group(train_layers))
+        _free(dev)
+        with expandable_segments(dev):
+            run = train_with_inputs(dev, "train_families", cfg, steps, text, batch, micro, lr)
+            held_peak(full.name, run["records"], train_layers)
+            train_step_split(dev, "train_families", run["api"], run["opt_cfg"], run["model"],
+                             run["opt"], family_batch(cfg, run["data"], steps), micro)
+            _count_into(total, run["launches"])
+            del run
+        if full.vision_dim:
+            launcher(arch)
+        log(f"[train_families] {full.name}: {time.perf_counter() - t_arch:.1f} s in all")
+    log(f"[train_families] launches in the training runs and the launchers: {total}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3610,8 +4045,8 @@ def run_train_launcher(args: list[str]) -> tuple[list[str], dict]:
     """``python -m repro_torch.launch.train args`` in this process, the
     module run as ``-m`` runs it (``runpy``): the lines it prints, and this
     process's ``flash_attn`` counts over the run (all forward launches, those
-    on the tensor cores, backward launches, and calls of
-    ``attention_backward_blocked``)."""
+    on the tensor cores, backward launches, those on the tensor cores, and
+    calls of ``attention_backward_blocked``)."""
     import contextlib
     import io
     import runpy
@@ -3622,7 +4057,8 @@ def run_train_launcher(args: list[str]) -> tuple[list[str], dict]:
 
     def counts():
         a = flash.attention
-        return [a.launches, a.wgmma_launches, a.backward_launches, _blocked_calls()]
+        return [a.launches, a.wgmma_launches, a.backward_launches, a.wgmma_backward_launches,
+                _blocked_calls()]
 
     before, out, argv = counts(), io.StringIO(), sys.argv
     sys.argv = ["-m", *args]
@@ -3633,16 +4069,18 @@ def run_train_launcher(args: list[str]) -> tuple[list[str], dict]:
         sys.argv = argv
     diff = [a - b for a, b in zip(counts(), before)]
     return out.getvalue().strip().splitlines(), dict(zip(("forward", "wgmma", "backward",
-                                                          "blocked"), diff))
+                                                          "wgmma_backward", "blocked"), diff))
 
 
 def _launcher_counts(got: dict, label: str, per_step: int, steps: int, wgmma: bool) -> dict:
     """A launcher run's counts (``run_train_launcher``) held to ``per_step``
-    forward launches a step (the forward and the remat recompute; all on
-    the tensor cores when ``wgmma``), half as many backward launches, and no
-    call of the plain backward; returned as launch counts of the path."""
+    forward launches a step (the forward and the remat recompute), half as
+    many backward launches (all of both on the tensor cores when ``wgmma``,
+    else none), and no call of the plain backward; returned as launch counts
+    of the path."""
     want = dict(forward=per_step * steps, wgmma=per_step * steps if wgmma else 0,
-                backward=per_step // 2 * steps, blocked=0)
+                backward=per_step // 2 * steps,
+                wgmma_backward=per_step // 2 * steps if wgmma else 0, blocked=0)
     require(got == want, f"{label}: flash_attn counts {got}, expected {want} (blocked: "
             "calls of attention_backward_blocked, the plain backward)")
     return {**_no_counts(), "flash_attn": got["forward"], "flash_attn_backward": got["backward"]}
@@ -3879,20 +4317,22 @@ def _train_cfg(layers: int | None, smoke: bool = False):
 
 
 def _require_launches(label: str, steps: list, launches: dict, per_step: int, n_steps: int,
-                      wgmma: int | None = None) -> None:
+                      wgmma: int | None = None, wgmma_backward: int | None = None) -> None:
     """A training run's ``flash_attn`` launches: ``per_step`` forward launches
-    a step (the forward and the remat recompute, all on the tensor cores)
-    and half as many backward launches (one a forward that autograd
-    differentiates), in each step's record and in the run's ``launches``
-    over its ``n_steps`` steps."""
+    a step (the forward and the remat recompute, all on the tensor cores:
+    ``wgmma``, where given) and half as many backward launches (one a
+    forward that autograd differentiates; all on the tensor cores:
+    ``wgmma_backward``, where given), in each step's record and in the
+    run's ``launches`` over its ``n_steps`` steps."""
     got = [(rec["launches"], rec["backward"]) for rec in steps]
     require(all(g == (per_step, per_step // 2) for g in got),
             f"{label}: flash_attn launched {got} times a step (forward, backward), expected "
             f"{(per_step, per_step // 2)}")
     want = (per_step * n_steps, per_step // 2 * n_steps)
     have = (launches["flash_attn"], launches["flash_attn_backward"])
-    require(have == want and wgmma in (None, want[0]),
-            f"{label}: flash_attn launches {have} (tensor cores {wgmma}), expected {want}")
+    require(have == want and wgmma in (None, want[0]) and wgmma_backward in (None, want[1]),
+            f"{label}: flash_attn launches {have} (tensor cores {wgmma}, {wgmma_backward}), "
+            f"expected {want}")
 
 
 def _mesh_log(tag: str, r: dict) -> None:
@@ -4500,12 +4940,21 @@ def main(argv: list[str] | None = None) -> int:
             for n in map(int, depths.split(",")):
                 cfg = dataclasses.replace(get_config(arch), n_layers=n,
                                           remat_group=default_remat_group(n))
+                inputs = {a: (text, lr) for a, _, text, lr in TRAIN_INPUT_FAMILIES}
                 try:
                     with expandable_segments(dev):
-                        train_with_restart(dev, "train_depth", cfg, FAMILY_STEPS, None,
-                                           TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, lr=FAMILY_LR)
+                        if arch in inputs:
+                            train_with_inputs(dev, "train_depth", cfg, FAMILY_STEPS,
+                                              inputs[arch][0], TRAIN_BATCH, TRAIN_MICRO,
+                                              inputs[arch][1])
+                        else:
+                            train_with_restart(dev, "train_depth", cfg, FAMILY_STEPS, None,
+                                               TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO,
+                                               lr=FAMILY_LR)
                 except torch.OutOfMemoryError:
                     log(f"[train_depth] {cfg.name} at {n} layers: out of memory")
+                except RuntimeError as e:  # a check of the run, as the phase holds it
+                    log(f"[train_depth] {cfg.name} at {n} layers: {e}")
                 _free(dev)
         return 0
     if args.only and not args.kernels_only:
@@ -4523,9 +4972,11 @@ def main(argv: list[str] | None = None) -> int:
     dedup_launches = phase("dedup", phase_dedup, dev)
     serving_launches = phase("serving", phase_serving, dev)
     shard_launches = phase("shard", phase_shard, dev)
-    dry = start_dryrun()  # on the CPU, beside the LM and training phases on the card
     lm_launches = phase("lm", phase_lm, dev)
     families_launches = phase("lm_families", phase_lm_families, dev)
+    # on the CPU, beside the training phases, which keep the card busy, and
+    # not beside lm_families, whose card-vs-CPU checks keep the CPU busy
+    dry = start_dryrun()
     train_launches = phase("train", phase_train, dev)
     train_families_launches = phase("train_families", phase_train_families, dev)
     mesh_launches, ref = phase("train_mesh", phase_train_mesh, dev)

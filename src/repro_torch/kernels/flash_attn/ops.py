@@ -290,6 +290,7 @@ def attention_backward(q, k, v, o, lse, do, scale, causal: bool = True):
             stream,
         )
         build.check("flash_attn backward (wgmma)", rc)
+        attention.wgmma_backward_launches += 1
         if hq != hv:
             attention.mla_backward_launches += 1
     else:
@@ -403,5 +404,6 @@ def _launch(q, k, v, scale, causal: bool, lse=None):
 attention.launches = 0  # every forward launch, both routes
 attention.wgmma_launches = 0  # the tensor-core route's share
 attention.backward_launches = 0  # every attention_backward launch, both routes
+attention.wgmma_backward_launches = 0  # the tensor-core backward's share
 attention.mla_forward_launches = 0  # the tensor-core forward's (96, 64) instance
 attention.mla_backward_launches = 0  # the tensor-core backward's (96, 64) instance
