@@ -117,7 +117,10 @@
    Prints prefill ms, decode ms a step, tokens/s, peak memory, and the
    device's busy share of one more serving run of each kind under
    ``torch.profiler``.
-12. LM families (``lm_families``): the MoE (Llama-4 Scout, Moonlight), MLA
+12. LM families (``lm_families``): the largest dense configuration
+   (Qwen2-72B: GQA 64/8 at hd 128, qkv bias, vocabulary 152,064; 1 layer
+   against the CPU, served at 18 of 80 layers, the deepest draw under
+   ``DRAW_BUDGET_GIB``), the MoE (Llama-4 Scout, Moonlight), MLA
    (MiniCPM3), VLM (Qwen2-VL) and SSM (Falcon-Mamba) configurations at full
    width, weights from ``init_params`` seed 0 (``LM_FAMILIES``).  Each first
    on the card against the CPU from one draw at a cut depth: a prefill of 4
@@ -130,12 +133,14 @@
    have a CPU router-logit margin (k-th minus (k+1)-th) of at most twice
    that token's router-logit error.  Qwen2-VL also runs ``forward_train`` with 1,024
    vision patches at distinct M-RoPE streams (B=1, S=1,088, 2 layers) and
-   Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers) against the
-   CPU; on the same draw and input Qwen2-VL's loss and every gradient, as
-   the training phases hold them (``check_train_card_vs_cpu``: within
-   2e-2, every attention projection's and ``vision_proj``'s gradient
-   nonzero, ``flash_attn`` launched twice and its backward once a layer,
-   all on the tensor cores).  Then each is served through ``repro_torch.launch.serve.main``
+   Falcon-Mamba its chunked ``forward_train`` (S=256, 2 layers, each chunk
+   of 128 checkpointed under autograd) against the CPU; on the same draw
+   and input each one's loss and every gradient, as the training phases
+   hold them (``check_train_card_vs_cpu``: within 2e-2; Qwen2-VL's every
+   attention projection's and ``vision_proj``'s gradient nonzero,
+   ``flash_attn`` launched twice and its backward once a layer, all on the
+   tensor cores; Falcon-Mamba's every mixer leaf's gradient nonzero and no
+   ``flash_attn`` launch).  Then each is served through ``repro_torch.launch.serve.main``
    (``--layers``, the deepest whose draw stays under ``DRAW_BUDGET_GIB``,
    where the full depth does not): 4 requests of 32 tokens in
    a batch of 4, 8 new tokens each, and for MiniCPM3 one 4,096-token prompt
@@ -171,14 +176,14 @@
    card against the CPU from one seed-0 draw: loss and every gradient within
    2e-2, every attention projection's gradient nonzero, ``flash_attn``
    launched 4 times and its backward twice.  Then
-   Qwen1.5-0.5B at full width and ``TRAIN_LAYERS`` = 12 of its 24 layers
+   Qwen1.5-0.5B at full width and ``TRAIN_LAYERS`` = 2 of its 24 layers
    through ``repro_torch.train.trainer.Trainer``: batch 8 x 2,048 in 2
-   microbatches, ``remat_group`` 4, ``OptConfig(lr=1e-3, warmup_steps=2)``,
+   microbatches, ``remat_group`` 2, ``OptConfig(lr=1e-3, warmup_steps=2)``,
    6 steps with a checkpoint at step 4, then a restart from that checkpoint
    to step 6: the restarted losses within 1e-5 relative of the
    uninterrupted ones, the last loss below the first, and ``flash_attn``
-   launched 12 x 2 x 2 = 48 times a step (forward and remat recompute) and
-   its backward kernel 24 times (one a differentiated forward; every
+   launched 2 x 2 x 2 = 8 times a step (forward and remat recompute) and
+   its backward kernel 4 times (one a differentiated forward; every
    training run below is held to the same counts, ``_require_launches``).  The counters are set to 0
    before the Trainer runs and read after them.  Prints each step's loss,
    ms, tokens/s, peak memory and launches (the steps are timed without the
@@ -190,19 +195,25 @@
    runs the module (``run_train_launcher``): it must launch ``flash_attn``
    96 times a step on the tensor cores and its backward 48 times, with no
    call of the plain backward.
-14. Train families (``train_families``): the MoE and MLA families trained
-   at full width (``TRAIN_FAMILIES``): Moonlight-16B-A3B (64 experts top-6,
-   16/16 heads at hd 128, vocabulary 163,840) and MiniCPM3-4B (MLA, q.k 96
-   and v 64, 40 heads: every forward and backward launch on the tensor-core
-   kernels' unpadded (96, 64) instances).  Each first at 2 layers on the card
+14. Train families (``train_families``): the MoE, MLA and SSM families
+   trained at full width (``TRAIN_FAMILIES``): Moonlight-16B-A3B (64 experts
+   top-6, 16/16 heads at hd 128, vocabulary 163,840), MiniCPM3-4B (MLA, q.k
+   96 and v 64, 40 heads: every forward and backward launch on the
+   tensor-core kernels' unpadded (96, 64) instances) and Falcon-Mamba-7B
+   (d_inner 8,192, N 16, vocabulary 65,024: the chunked scan under
+   autograd, each chunk checkpointed, and no ``flash_attn`` launch; its
+   card-vs-CPU check runs in phase ``lm_families``, and its full-width run
+   has no restart).  Each first at 2 layers on the card
    against the CPU from one seed-0 draw (``check_train_card_vs_cpu``: loss
    and every gradient within 2e-2, the CPU on the card's MoE routing and
    every routing difference a near-tie, every attention projection of the
    family's own tree with a nonzero gradient, ``flash_attn`` 4 times and
    its backward twice).  Then through ``Trainer`` at its trained depth, the
-   deepest whose step peak stays within ``DRAW_BUDGET_GIB``
-   (``--train-depth`` measures the others): phase train's batch and
-   microbatches, AdamW at ``FAMILY_LR``, 4 steps (with expandable
+   deepest whose step peak stays within ``DRAW_BUDGET_GIB`` or less, for
+   the script's time (``TRAIN_FAMILIES``; ``--train-depth`` measures the
+   others): phase train's batch and
+   microbatches, AdamW at the row's lr (``FAMILY_LR``, a quarter of it for
+   Falcon-Mamba), 4 steps (with expandable
    segments), the state after step 2 copied to host memory and a second
    ``Trainer`` restarted from it to step 4 (losses within 1e-5), the loss
    falling, ``flash_attn`` layers x 2 x 2 times a step on the tensor cores
@@ -221,7 +232,8 @@
    at its trained depth, each sequence of 2,048 tokens carrying 1,024 vision
    patches after its first 32 and their M-RoPE grid; Whisper-medium at 24 +
    24 layers, 8 x 448 tokens over 8 x 1,500 stub frames; each from a seed-0
-   f32 draw, AdamW at ``FAMILY_LR``, 4 steps in 2 microbatches, the loss
+   f32 draw, AdamW at the row's lr (``FAMILY_LR``, a quarter of it for
+   Qwen2-VL), 4 steps in 2 microbatches, the loss
    falling, the step peak within ``DRAW_BUDGET_GIB``, ``flash_attn``
    attention layers x 2 x 2 times a step and its backward half as often,
    every launch of both on the tensor cores; the busy share and the
@@ -800,7 +812,8 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     # the serving path's prefills in bf16 first (Yi-6B's requests, its long
     # prompt, the embedding matcher's encoder, a Qwen1.5-0.5B prompt at hd
-    # 64; then every shape the lm_families phase sends: MiniCPM3's MLA long
+    # 64; then every shape the lm_families phase sends: Qwen2-72B's served
+    # requests and its 1-layer check (64/8 heads), MiniCPM3's MLA long
     # prompt and its served requests, q.k dim 96 and v dim 64 unpadded on the
     # tensor cores' (96, 64) instance, Llama-4 Scout's GQA group of 5,
     # Qwen2-VL's group of 7 at its vision forward and its served requests,
@@ -818,6 +831,7 @@ def phase_kernels(dev, only: list[str] | None = None) -> list[dict]:
         (8, 32, 32, 4, 4, 8, torch.bfloat16, True, None),
         (1, 2048, 2048, 16, 16, 64, torch.bfloat16, True, None),
         (1, 4096, 4096, 40, 40, 128, torch.bfloat16, True, (96, 64)),
+        (4, 32, 32, 64, 8, 128, torch.bfloat16, True, None),
         (4, 32, 32, 40, 8, 128, torch.bfloat16, True, None),
         (1, 1088, 1088, 28, 4, 128, torch.bfloat16, True, None),
         (4, 32, 32, 16, 16, 128, torch.bfloat16, True, None),
@@ -2112,6 +2126,7 @@ def phase_lm(dev, arch: str = "yi_6b", cmp_layers: int = 2, long_len: int = 4096
 # the card's 79.6 GiB holds the CUDA context, caches and activations)
 DRAW_BUDGET_GIB = 74.0
 LM_FAMILIES = [
+    ("qwen2_72b", 1, 18),  # the largest dense configuration: 71.19 GiB, 74.63 at 19
     ("llama4_scout_17b_a16e", 1, 7),
     ("moonshot_v1_16b_a3b", 2, 29),
     ("minicpm3_4b", 2, 62),
@@ -2119,17 +2134,39 @@ LM_FAMILIES = [
     ("falcon_mamba_7b", 2, 64),
 ]
 LM_REL_TOL = 2e-2
+# AdamW's first steps move every weight by about lr whatever its gradient, so
+# at these widths every layer turns the hidden state toward the most frequent
+# token's unembedding row at once and that one logit overshoots before later
+# steps pull it back: at phase train's 1e-3 MiniCPM3's loss at 32 layers went
+# 11.58 -> 14.25 over 4 steps, at 1e-4 it rises at steps 2-3 and ends at 8.72;
+# the card follows the CPU there (tests/train_family_probe.py, PERF.md §6)
+FAMILY_LR = 1e-4
 # the train_families phase: (arch, layers in the card-vs-CPU check, layers
 # trained), each at full width; a trained depth is the deepest whose measured
 # step peak stays within DRAW_BUDGET_GIB in the script, beside the ~1 GiB the
 # earlier phases keep allocated (MiniCPM3 at 33 layers peaked at 74.25 GiB
 # there, 73.64 alone; ``--train-depth`` measures a depth alone: Moonlight at
 # 3 layers runs out of memory in its first step), but MiniCPM3's, cut from
-# its deepest 32 to 16 to keep the whole script within its time limit
-# (``--train-depth minicpm3_4b:32`` trains the deepest)
+# its deepest 32 to 2, and Falcon-Mamba's, cut from its deepest 18 to 1, to
+# keep the whole script within its time limit (``--train-depth
+# minicpm3_4b:32`` trains the deepest).  A cut for time alone: at 4 and 8
+# layers MiniCPM3's loss rises past its first by step 4 (at 2, 16 and 32 it
+# falls), on the CPU as on the card and with the plain attention as with
+# the kernels (tests/train_family_probe.py --follow, PERF.md §6).  The fourth
+# field is the learning rate.  A family whose card-vs-CPU check is None
+# (Falcon-Mamba) is checked in phase lm_families, on the pass that compares
+# its forward_train, and, as the families of TRAIN_INPUT_FAMILIES checked
+# there too, has no full-width restart: the state format is
+# family-independent, and its smoke config's checkpointed restart holds it.
+# Falcon-Mamba's lr is a quarter of FAMILY_LR: at 1e-4 its loss at 1, 2 and
+# 4 layers rose at steps 3-4 (4 layers: 11.92 -> 16.91), at 2.5e-5 it fell
+# from first to last at 1, 2, 4, 17 and 18 layers ("NVIDIA H100 80GB HBM3,
+# 700.00 W"); whether the card follows the CPU over such steps:
+# tests/train_family_probe.py --follow, PERF.md §6
 TRAIN_FAMILIES = [
-    ("moonshot_v1_16b_a3b", 2, 2),
-    ("minicpm3_4b", 2, 16),
+    ("moonshot_v1_16b_a3b", 2, 2, FAMILY_LR),
+    ("minicpm3_4b", 2, 2, FAMILY_LR),
+    ("falcon_mamba_7b", None, 1, FAMILY_LR / 4),
 ]
 
 
@@ -2374,20 +2411,18 @@ def vlm_forward_card_vs_cpu(dev, cfg, text: int = 32) -> dict:
 
 
 def ssm_forward_card_vs_cpu(dev, cfg, S: int = 256) -> dict:
-    """The SSM's chunked ``forward_train`` (chunks of 128) on the card and the CPU."""
-    import torch
-
-    from repro_torch.models import ssm_lm
-    from repro_torch.models.registry import get_model
-
-    api = get_model(cfg)
+    """The SSM's chunked ``forward_train`` (chunks of 128, each checkpointed
+    under autograd) on the card and the CPU from one seed-0 draw, inside
+    the loss and every gradient of that input (``train_card_vs_cpu``, under
+    ``train``): one pass a side gives the hidden states, the logits at
+    every 16th position and the gradients."""
+    rng = np.random.default_rng(19)
+    data = {k: rng.integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
+            for k in ("tokens", "labels")}
     t0 = time.perf_counter()
-    card, host, _ = _models_on_both(dev, api)
-    toks = np.random.default_rng(19).integers(1, cfg.vocab_size - 1, (1, S)).astype(np.int32)
-    hidden = [ssm_lm.forward_train(cfg, m, torch.as_tensor(toks, device=d))
-              for d, m in [(torch.device("cpu"), host), (dev, card)]]
-    rel_h, rel = _logits_rel(hidden[0], hidden[1], ssm_lm, cfg, (host, card), every=16)
-    return dict(S=S, rel_h=rel_h, rel=rel, seconds=time.perf_counter() - t0)
+    cmp = train_card_vs_cpu(dev, cfg, data=data, hidden_every=16, f32_products=True)
+    return dict(S=S, rel_h=cmp.pop("rel_h"), rel=cmp.pop("rel_logits"),
+                seconds=time.perf_counter() - t0, train=cmp)
 
 
 def _draw_gib(cfg, layers: int) -> float:
@@ -2936,7 +2971,8 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
             log(f"[lm_families] {full.name} forward_train, card vs CPU at "
                 f"{cmp_layers} layer(s), B=1, S={fw['S']}"
                 + (f" ({full.vision_patches} vision patches of {full.vision_dim}, distinct "
-                   f"M-RoPE streams)" if full.vision_dim else " (chunks of 128)")
+                   f"M-RoPE streams)" if full.vision_dim
+                   else " (chunks of 128, each checkpointed under autograd)")
                 + f": hidden relative {fw['rel_h']:.3g}, logits relative {fw['rel']:.3g} "
                 f"({fw['seconds']:.1f} s)")
             require(fw["rel"] <= LM_REL_TOL and fw["rel_h"] <= LM_REL_TOL,
@@ -2991,11 +3027,11 @@ def phase_lm_families(dev, max_new: int = 8, long_len: int = 4096) -> dict:
 
 # the train phase: Qwen1.5-0.5B (hf:Qwen/Qwen1.5-0.5B) at full width
 TRAIN_ARCH = "qwen1_5_0_5b"
-# the Trainer runs, which write three checkpoints, at 12 of its 24 layers
+# the Trainer runs, which write three checkpoints, at 2 of its 24 layers
 # (full width), cut to keep the whole script within its time limit: a
-# checkpoint is 5.57 GB at the full depth, about 3.7 at 12 layers; the
-# launcher in the phase trains all 24
-TRAIN_LAYERS = 12
+# checkpoint is 5.57 GB at the full depth, 3.72 at 12 layers, 2.17 at 2;
+# the launcher in the phase trains all 24
+TRAIN_LAYERS = 2
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 6, 4, 8, 2048, 2
 TRAIN_RESTART_TOL = 1e-5  # relative: the embedding backward's atomics (index_add_)
 FAMILY_STEPS, FAMILY_CKPT_AT = 4, 2  # the train_families phase's Trainer runs
@@ -3006,27 +3042,22 @@ FAMILY_STEPS, FAMILY_CKPT_AT = 4, 2  # the train_families phase's Trainer runs
 # MiniCPM3 at 32, and the card's machine stops a command at 45 GiB of disk
 # writes, much of which the other phases use (PERF.md §6)
 FAMILY_SMOKE = (8, 256)
-# AdamW's first steps move every weight by about lr whatever its gradient, so
-# at these widths every layer turns the hidden state toward the most frequent
-# token's unembedding row at once and that one logit overshoots before later
-# steps pull it back: at phase train's 1e-3 MiniCPM3's loss at 32 layers went
-# 11.58 -> 14.25 over 4 steps, at 1e-4 it rises at steps 2-3 and ends at 8.72;
-# the card follows the CPU there (tests/train_family_probe.py, PERF.md §6)
-FAMILY_LR = 1e-4
 # the train_families phase's VLM and encoder-decoder: (arch, layers trained,
 # tokens a sequence, lr), each at full width, trained through
 # make_train_step, since their batches carry inputs beside the corpus's tokens
 # and labels that the Trainer, as the reference's, does not feed.  Qwen2-VL's
 # 1,024 vision patches follow its first VLM_TEXT tokens of 2,048; its depth
-# is the deepest whose step peak stays within DRAW_BUDGET_GIB (68.70 GiB at 5
-# layers, 75.64 at 6), and its lr a quarter of FAMILY_LR: at d 3,584 the
+# is cut to 2 from the deepest whose step peak stays within DRAW_BUDGET_GIB
+# (68.70 GiB at 5 layers, 75.64 at 6; ``--train-depth qwen2_vl_7b:5,6``) to
+# keep the whole script within its time limit, and its lr a quarter of
+# FAMILY_LR: at d 3,584 the
 # overshoot FAMILY_LR's comment describes is larger, and at 1e-4 and 5e-5
 # the loss at 5 layers still rose at step 4 (12.61 -> 16.45 and -> 13.23;
 # tests/train_input_family_probe.py).  Whisper-medium decodes 448 tokens (its
 # published text context) over 1,500 stub frames, at full depth.  Both are
 # held against the CPU in phase lm_families
 TRAIN_INPUT_FAMILIES = [
-    ("qwen2_vl_7b", 5, 2048, FAMILY_LR / 4),
+    ("qwen2_vl_7b", 2, 2048, FAMILY_LR / 4),
     ("whisper_medium", 24, 448, FAMILY_LR),
 ]
 VLM_TEXT = 32  # text tokens before the vision patches
@@ -3256,8 +3287,10 @@ def flash_grad_row(dev, label, B, S, T, H, hkv, hd, dtype, causal, mla) -> dict:
 def _attention_layers(cfg) -> int:
     """The attention layers one forward of ``cfg`` runs, each one
     ``flash_attn`` launch: the encoder-decoder's encoder layers and its
-    decoder's self and cross attention, else one a layer."""
-    return cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    decoder's self and cross attention, none for the SSM, else one a layer."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
 def _attention_projections(api) -> list[str]:
@@ -3279,6 +3312,21 @@ def _attention_projections(api) -> list[str]:
              for k in sorted(specs[stack][group]) if not k.endswith("norm")]
     zero = _zero_grad_leaves(cfg, names)
     return [n for n in names if n not in zero] + (["vision_proj"] if cfg.vision_dim else [])
+
+
+def _held_nonzero(api) -> list[str]:
+    """The leaves whose gradient ``check_train_card_vs_cpu`` holds nonzero on
+    the card: the attention projections (``_attention_projections``), or,
+    for the SSM, which has no attention, every leaf of each layer's mixer
+    (``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``,
+    ``dt_bias``, ``A_log``, ``D``, ``out_proj``): the scan's own
+    parameters, whose gradients come through its chunk checkpoints'
+    recompute."""
+    cfg = api.cfg
+    if cfg.family != "ssm":
+        return _attention_projections(api)
+    return [f"layers.{i}.mixer.{k}" for i in range(cfg.n_layers)
+            for k in sorted(api.param_specs()["layers"]["mixer"])]
 
 
 def _zero_grad_leaves(cfg, names) -> set[str]:
@@ -3340,18 +3388,19 @@ def cpu_products_in_f32(on: bool):
 def _no_remat(on: bool):
     """With ``on``, the layer loops inside the block keep every activation
     instead of recomputing them in the backward (``stacked_scan`` calls
-    each group directly): the same numbers, as remat changes none."""
-    from repro_torch.models import scan_utils
+    each group directly), and so do the SSM scan's chunks: the same
+    numbers, as remat changes none."""
+    from repro_torch.models import scan_utils, ssm
 
     if not on:
         yield
         return
-    checkpoint = scan_utils.checkpoint
-    scan_utils.checkpoint = lambda fn, *args, use_reentrant=False: fn(*args)
+    saved = scan_utils.checkpoint, ssm.checkpoint
+    scan_utils.checkpoint = ssm.checkpoint = lambda fn, *args, **kwargs: fn(*args)
     try:
         yield
     finally:
-        scan_utils.checkpoint = checkpoint
+        scan_utils.checkpoint, ssm.checkpoint = saved
 
 
 @contextlib.contextmanager
@@ -3365,8 +3414,8 @@ def _hidden_probe(mod, on: bool):
     fn = mod.forward_train
 
     def call(*args):
-        out = fn(*args)
-        outs.append(out[0].detach())
+        out = fn(*args)  # (hidden, aux), or the SSM's hidden alone
+        outs.append((out[0] if isinstance(out, tuple) else out).detach())
         return out
 
     mod.forward_train = call
@@ -3397,8 +3446,9 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
     (computed on ``dev``; for the leaves of ``_zero_grad_leaves`` instead
     the larger side's max |g| over the model's largest CPU gradient entry,
     and the leaves the loss does not read, on both sides), the largest
-    gradient of each attention projection on the card
-    (``_attention_projections``, whose count is returned too), the
+    gradient of each leaf held nonzero on the card (``_held_nonzero``: the
+    attention projections, the SSM's mixer leaves; their count is returned
+    too), the
     ``flash_attn`` forward and backward launches of the card's loss and
     backward and those on the tensor cores, and the seconds of each side.
     MoE: as in ``lm_card_vs_cpu``, the CPU takes the card's routing
@@ -3406,7 +3456,8 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
     other way moves its whole gradient row to another expert and changes
     every activation downstream of it; both sides' own choices (the
     forward's and the remat recompute's, a layer each) are compared by
-    ``_routing_agreement``.  ``hidden_every`` (a decoder's ``forward_train``):
+    ``_routing_agreement``.  ``hidden_every`` (a decoder's or the SSM's
+    ``forward_train``):
     also the hidden states' relative difference, and the logits' at every
     ``hidden_every``-th position (``rel_h``, ``rel_logits``), recorded in
     the same pass.  The CPU pass keeps its activations (``_no_remat``; but
@@ -3415,11 +3466,12 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
     import torch
 
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm_lm, transformer
     from repro_torch.models.param import in_f32, init_params
     from repro_torch.models.registry import get_model
 
     api = get_model(cfg)
+    lm = ssm_lm if cfg.family == "ssm" else transformer  # its forward_train and logits_of
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
     if tree is None:
@@ -3435,7 +3487,7 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
         _zero_counts()
         host = d.type == "cpu"
         with routing_probe(replay=routes[0] if routes else None) as calls, \
-                _hidden_probe(transformer, hidden_every) as hidden, \
+                _hidden_probe(lm, hidden_every) as hidden, \
                 _no_remat(host and not cfg.n_experts), \
                 cpu_products_in_f32(host and f32_products):
             loss, _ = api.loss(model, _on(data, d))
@@ -3444,7 +3496,7 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
         if hidden_every:
             with torch.no_grad():
                 h = hidden[0][:, ::hidden_every]
-                hidden.append(transformer.logits_of(cfg, model, h).float().cpu())
+                hidden.append(lm.logits_of(cfg, model, h).float().cpu())
             hidden[0] = hidden[0].float().cpu()
             states.append(hidden)
         lc = _read_counts()
@@ -3467,7 +3519,7 @@ def train_card_vs_cpu(dev, cfg, batch: int = 2, seq: int = 256, tree=None,
         res["rel_h"] = float((h_card - h_cpu).abs().max()) / float(h_cpu.abs().max())
         res["rel_logits"] = float((lg - lw).abs().max()) / float(lw.abs().max())
         del states
-    projections = _attention_projections(api)
+    projections = _held_nonzero(api)
     proj = {n: float(card_g[n].abs().max()) for n in projections if card_g.get(n) is not None}
     unused = sorted(n for n, g in cpu_g.items() if g is None)
     require(unused == sorted(n for n, g in card_g.items() if g is None),
@@ -3497,9 +3549,10 @@ def check_train_card_vs_cpu(dev, tag: str, cfg, cmp: dict | None = None) -> None
     held: the loss and every gradient leaf within ``LM_REL_TOL`` (MoE: every
     routing difference a near-tie; the leaves of ``_zero_grad_leaves``
     below ``GRAD_FLOOR`` of the largest gradient entry on both sides),
-    every attention projection's gradient nonzero, and ``flash_attn``
-    launched twice an attention layer (forward and recompute) and its
-    backward once, all on the tensor cores."""
+    every attention projection's gradient nonzero (the SSM: every mixer
+    leaf's, ``_held_nonzero``), and ``flash_attn`` launched twice an
+    attention layer (forward and recompute) and its backward once, all on
+    the tensor cores (none for the SSM)."""
     cmp = cmp or train_card_vs_cpu(dev, cfg)
     seconds = ", ".join(f"{k} {v:.1f}" for k, v in cmp["seconds"].items())
     worst = max(cmp["rel"], key=cmp["rel"].get)
@@ -3524,8 +3577,8 @@ def check_train_card_vs_cpu(dev, tag: str, cfg, cmp: dict | None = None) -> None
     log(f"[{tag}] {cfg.name} at {depth} layers, card vs CPU ({inputs}): loss "
         f"{cmp['loss'][0]:.6f} / {cmp['loss'][1]:.6f} (relative {cmp['loss_rel']:.3g}); "
         f"gradients max |d| / max |g_cpu| worst {cmp['rel'][worst]:.3g} ({worst}), limit "
-        f"{LM_REL_TOL}{mla}{floor}{unused}{routing}; attention projections' max |g| on the "
-        f"card: smallest {min(cmp['proj'].values()):.3g} "
+        f"{LM_REL_TOL}{mla}{floor}{unused}{routing}; the held-nonzero leaves' max |g| on "
+        f"the card: smallest {min(cmp['proj'].values()):.3g} "
         f"({min(cmp['proj'], key=cmp['proj'].get)}) of {len(cmp['proj'])}; flash_attn "
         f"launches {cmp['launches'][0]}, backward {cmp['launches'][1]} (tensor cores "
         f"{cmp['launches'][2]}, {cmp['launches'][3]}) (s: {seconds})")
@@ -3536,8 +3589,9 @@ def check_train_card_vs_cpu(dev, tag: str, cfg, cmp: dict | None = None) -> None
     bad = {n: e for n, e in cmp["floor"].items() if not e <= GRAD_FLOOR}
     require(not bad, f"{cfg.name}: gradients that are 0 in exact arithmetic over {GRAD_FLOOR} "
             f"of the largest: {bad}")
-    require(len(cmp["proj"]) == cmp["n_proj"] and all(g > 0 for g in cmp["proj"].values()),
-            f"{cfg.name}: an attention projection has no gradient on the card: {cmp['proj']}")
+    require(cmp["n_proj"] > 0 and len(cmp["proj"]) == cmp["n_proj"]
+            and all(g > 0 for g in cmp["proj"].values()),
+            f"{cfg.name}: a leaf held nonzero has no gradient on the card: {cmp['proj']}")
     n = _attention_layers(cfg)
     want = (2 * n, n, 2 * n, n)
     require(cmp["launches"] == want, f"{cfg.name}: flash_attn launched {cmp['launches']} "
@@ -3578,7 +3632,7 @@ def train_with_restart(dev, tag: str, cfg, steps: int, ckpt_at: int | None, seq:
     data = CorpusConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
     opt_cfg = OptConfig(lr=lr, warmup_steps=2)
     root = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
-    per_launch = cfg.n_layers * micro * 2  # forward and remat recompute
+    per_launch = _attention_layers(cfg) * micro * 2  # forward and remat recompute
     records: list = []
     held: dict = {}  # in_memory: the state after step ckpt_at, on the host
 
@@ -3922,12 +3976,13 @@ def expandable_segments(dev):
 
 def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
                          batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO) -> dict:
-    """The MoE and MLA families trained on the card (``TRAIN_FAMILIES``):
-    each at full width against the CPU at a cut depth
-    (``check_train_card_vs_cpu``); through ``Trainer`` at full width and
-    its trained depth for ``steps`` steps, its step peak within
-    ``DRAW_BUDGET_GIB``, restarted from the state after ``FAMILY_CKPT_AT``
-    held in host memory; its smoke config through ``Trainer`` with a
+    """The MoE, MLA and SSM families trained on the card
+    (``TRAIN_FAMILIES``): each at full width against the CPU at a cut depth
+    (``check_train_card_vs_cpu``; the SSM's in phase ``lm_families``);
+    through ``Trainer`` at full width and its trained depth for ``steps``
+    steps, its step peak within ``DRAW_BUDGET_GIB``, restarted from the
+    state after ``FAMILY_CKPT_AT`` held in host memory (not the SSM); its
+    smoke config through ``Trainer`` with a
     checkpoint at ``FAMILY_CKPT_AT`` and a restart from it (the checkpoint
     format; the full-width state's checkpoints would pass the disk the
     card's machine allows a run, see ``FAMILY_SMOKE``); then ``python -m
@@ -3966,26 +4021,30 @@ def phase_train_families(dev, steps: int = FAMILY_STEPS, seq: int = TRAIN_SEQ,
                 *(["--device", "cpu"] if dev.type != "cuda" else [])]
         t0 = time.perf_counter()
         lines, counts = run_train_launcher(args)
-        lc = _launcher_counts(counts, f"{arch} launcher", smoke.n_layers * 2, 2, tensor_cores)
+        lc = _launcher_counts(counts, f"{arch} launcher", _attention_layers(smoke) * 2, 2,
+                              tensor_cores)
         log(f"[train_families] python -m repro_torch.launch.train {' '.join(args)} (in this "
             f"process): {time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
         _count_into(total, lc)
         _free(dev)
 
-    for arch, cmp_layers, train_layers in TRAIN_FAMILIES:
+    for arch, cmp_layers, train_layers, lr in TRAIN_FAMILIES:
         t_arch = time.perf_counter()
         full = get_config(arch)
         _free(dev)
-        check_train_card_vs_cpu(dev, "train_families",
-                                dataclasses.replace(full, n_layers=cmp_layers))
-        _free(dev)
+        restart = cmp_layers is not None  # else checked in lm_families, with no restart
+        if restart:
+            check_train_card_vs_cpu(dev, "train_families",
+                                    dataclasses.replace(full, n_layers=cmp_layers))
+            _free(dev)
         cfg = dataclasses.replace(full, n_layers=train_layers,
                                   remat_group=default_remat_group(train_layers))
         mla_before = flash.attention.mla_backward_launches
         mla_fwd_before = flash.attention.mla_forward_launches
         with expandable_segments(dev):
-            run = train_with_restart(dev, "train_families", cfg, steps, FAMILY_CKPT_AT, seq,
-                                     batch, micro, lr=FAMILY_LR, in_memory=True)
+            run = train_with_restart(dev, "train_families", cfg, steps,
+                                     FAMILY_CKPT_AT if restart else None, seq, batch, micro,
+                                     lr=lr, in_memory=restart)
             native = flash.attention.mla_backward_launches - mla_before
             native_fwd = flash.attention.mla_forward_launches - mla_fwd_before
             backward = run["launches"]["flash_attn_backward"]
@@ -4892,7 +4951,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--train-depth", action="append", metavar="ARCH:L[,L]",
                     help="train ARCH at full width and each depth L as phase train_families "
                          "does, without a restart, and print each step's loss, ms and peak "
-                         "memory; prints no result line")
+                         "memory (e.g. minicpm3_4b:32,33, qwen2_vl_7b:5,6, "
+                         "falcon_mamba_7b:N,N+1); prints no result line")
     ap.add_argument("--dryrun-worker", metavar="DIR",
                     help="the dryrun phase's process: write its records to DIR; prints no "
                          "result line")
@@ -4937,20 +4997,22 @@ def main(argv: list[str] | None = None) -> int:
 
         for spec in args.train_depth:
             arch, depths = spec.split(":")
+            # the row's lr (the last field of both lists), and the input
+            # families' text length
+            lr = next((f[-1] for f in TRAIN_FAMILIES + TRAIN_INPUT_FAMILIES if f[0] == arch),
+                      FAMILY_LR)
+            text = next((f[2] for f in TRAIN_INPUT_FAMILIES if f[0] == arch), None)
             for n in map(int, depths.split(",")):
                 cfg = dataclasses.replace(get_config(arch), n_layers=n,
                                           remat_group=default_remat_group(n))
-                inputs = {a: (text, lr) for a, _, text, lr in TRAIN_INPUT_FAMILIES}
                 try:
                     with expandable_segments(dev):
-                        if arch in inputs:
-                            train_with_inputs(dev, "train_depth", cfg, FAMILY_STEPS,
-                                              inputs[arch][0], TRAIN_BATCH, TRAIN_MICRO,
-                                              inputs[arch][1])
+                        if text is not None:
+                            train_with_inputs(dev, "train_depth", cfg, FAMILY_STEPS, text,
+                                              TRAIN_BATCH, TRAIN_MICRO, lr)
                         else:
                             train_with_restart(dev, "train_depth", cfg, FAMILY_STEPS, None,
-                                               TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO,
-                                               lr=FAMILY_LR)
+                                               TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, lr=lr)
                 except torch.OutOfMemoryError:
                     log(f"[train_depth] {cfg.name} at {n} layers: out of memory")
                 except RuntimeError as e:  # a check of the run, as the phase holds it

@@ -11,7 +11,14 @@ chunk to the next; within a chunk a Hillis-Steele scan combines the
 (decay, input) pairs in log2(chunk) steps, the same associative
 operator as the reference's ``associative_scan``.  The last chunk may be
 shorter than the others.  Only one chunk's (B, chunk, d_inner, N)
-tensors are live at a time.
+tensors are live at a time.  Under autograd each chunk is checkpointed
+(``torch.utils.checkpoint``, non-reentrant): the graph keeps the chunk's
+inputs and its carried state, and the backward recomputes the chunk's
+scan, the same operations on the same inputs, so no number changes.
+Without it the scan's log2(chunk) doubling steps each keep two
+(B, chunk, d_inner, N) f32 tensors for the backward: by their sizes about
+62 GiB a layer for Falcon-Mamba-7B at 4 x 2,048 tokens, against one
+chunk's 4 GiB recomputed at a time.
 
 Decode carries (conv window, SSM state): O(1) a token.  The reference
 has no Pallas kernel here; a selective-scan kernel would be new work.
@@ -19,8 +26,11 @@ has no Pallas kernel here; a selective-scan kernel would be new work.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
@@ -87,18 +97,23 @@ def _chunk_scan(dt, Bm, Cm, A, u, h0):
         decay = torch.cat([decay[:, :shift], decay[:, shift:] * decay[:, :-shift]], 1)
         shift *= 2
     y = torch.einsum("bsdn,bsn->bsd", inp, Cm)
-    return y, inp[:, -1]
+    return y, inp[:, -1].clone()  # not a view: it would hold the chunk's whole inp
 
 
 def _scan(dt, Bm, Cm, A, u, chunk: int):
     """The selective scan over the whole sequence, chunk by chunk from a
-    zero state: y (B, S, Di) f32."""
+    zero state: y (B, S, Di) f32.  Under autograd each chunk is a
+    checkpoint (the module's docstring)."""
     B, S, di = u.shape
     h = torch.zeros((B, di, A.shape[-1]), dtype=torch.float32, device=u.device)
+    step = _chunk_scan
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, Bm, Cm, A, u)):
+        step = functools.partial(checkpoint, _chunk_scan, use_reentrant=False,
+                                 preserve_rng_state=False)  # the scan draws nothing
     ys = []
     for lo in range(0, S, chunk):
         sl = slice(lo, min(lo + chunk, S))
-        y, h = _chunk_scan(dt[:, sl], Bm[:, sl], Cm[:, sl], A, u[:, sl], h)
+        y, h = step(dt[:, sl], Bm[:, sl], Cm[:, sl], A, u[:, sl], h)
         ys.append(y)
     return torch.cat(ys, dim=1)
 

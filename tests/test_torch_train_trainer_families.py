@@ -1,5 +1,6 @@
-"""The port's ``Trainer`` for the MoE (Moonlight) and MLA (MiniCPM3)
-families on the CPU, at their smoke configs.
+"""The port's ``Trainer`` for the MoE (Moonlight), MLA (MiniCPM3) and SSM
+(Falcon-Mamba, its chunked scan checkpointed by chunk) families on the
+CPU, at their smoke configs.
 
 Against the reference's ``Trainer``: both start from one seed-0 draw of
 the reference's ``init_params`` (carried to the port by
@@ -52,7 +53,7 @@ from repro_torch.train import optimizer  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from test_torch_train_loop import _state, assert_follows_reference  # noqa: E402
 
-ARCHS = ["moonshot_v1_16b_a3b", "minicpm3_4b"]
+ARCHS = ["moonshot_v1_16b_a3b", "minicpm3_4b", "falcon_mamba_7b"]
 LOGITS = dict(rtol=2e-2, atol=2e-2)
 STEPS, MICRO = 3, 2
 DATA = dict(seq_len=16, global_batch=4, seed=0)

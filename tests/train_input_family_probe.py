@@ -1,21 +1,25 @@
-"""How the VLM's and the encoder-decoder's losses move over their first AdamW
-steps at full width on the card, at a given depth and learning rate.
+"""How a family's loss moves over its first AdamW steps at full width on
+the card, at a given depth and learning rate.
 
 Phase ``train_families`` of ``chip_smoke.py`` trains Qwen2-VL-7B (1,024
 vision patches a sequence of 2,048 tokens) and Whisper-medium (448 tokens
 over 1,500 stub frames) through ``make_train_step``
-(``chip_smoke.train_with_inputs``), 8 sequences a step in 2 microbatches,
-AdamW warmed up over 2 steps.  Each argument ``ARCH:LAYERS:LR:STEPS:TOKENS``
-runs that training from a seed-0 draw and prints each step's loss, gradient
-norm, ms and peak memory, then the busy share of one more step and a
-microbatch's forward, backward and AdamW times; a run whose loss does not
-fall, or that runs out of memory, prints why and the next one runs.  Last,
-``python -m repro_torch.launch.train --arch qwen2_vl_7b --smoke --steps 2``.
-Not collected by pytest; needs a CUDA card (about 2 minutes for these)::
+(``chip_smoke.train_with_inputs``), and the families of ``TRAIN_FAMILIES``
+(Moonlight, MiniCPM3, Falcon-Mamba) through ``Trainer``
+(``chip_smoke.train_with_restart``, here without a restart), 8 sequences a
+step in 2 microbatches, AdamW warmed up over 2 steps.  Each argument
+``ARCH:LAYERS:LR:STEPS:TOKENS`` runs that training from a seed-0 draw and
+prints each step's loss, gradient norm, ms and peak memory, then the busy
+share of one more step and a microbatch's forward, backward and AdamW
+times; a run whose loss does not fall, or that runs out of memory, prints
+why and the next one runs.  Last, ``python -m repro_torch.launch.train
+--arch qwen2_vl_7b --smoke --steps 2``.  Not collected by pytest; needs a
+CUDA card (about 2 minutes for these)::
 
     python3 tests/train_input_family_probe.py whisper_medium:24:1e-4:4:448 \\
         qwen2_vl_7b:5:1e-4:6:2048 qwen2_vl_7b:5:5e-5:4:2048 \\
-        qwen2_vl_7b:5:2.5e-5:4:2048 qwen2_vl_7b:6:1e-4:2:2048
+        qwen2_vl_7b:5:2.5e-5:4:2048 qwen2_vl_7b:6:1e-4:2:2048 \\
+        falcon_mamba_7b:2:2.5e-5:4:2048 minicpm3_4b:8:1e-4:4:2048
 """
 
 from __future__ import annotations
@@ -44,14 +48,22 @@ def main(specs: list[str]) -> None:
         cfg = dataclasses.replace(get_config(arch), n_layers=n,
                                   remat_group=default_remat_group(n))
         t = time.perf_counter()
+        tag = f"probe {arch} {n} lr {lr}"
         try:
             with c.expandable_segments(dev):
-                run = c.train_with_inputs(dev, f"probe {arch} {n} lr {lr}", cfg, steps, text,
-                                          c.TRAIN_BATCH, c.TRAIN_MICRO, lr=lr)
-                c.train_step_split(dev, "probe", run["api"], run["opt_cfg"], run["model"],
-                                   run["opt"], c.family_batch(cfg, run["data"], steps),
+                if arch in {a for a, *_ in c.TRAIN_INPUT_FAMILIES}:
+                    run = c.train_with_inputs(dev, tag, cfg, steps, text, c.TRAIN_BATCH,
+                                              c.TRAIN_MICRO, lr=lr)
+                    model, opt = run["model"], run["opt"]
+                    batch = c.family_batch(cfg, run["data"], steps)
+                else:
+                    run = c.train_with_restart(dev, tag, cfg, steps, None, text, c.TRAIN_BATCH,
+                                               c.TRAIN_MICRO, lr=lr)
+                    model, opt = run["resumed"]["params"], run["resumed"]["opt"]
+                    batch = run["trainer"].data.batch(steps)
+                c.train_step_split(dev, "probe", run["api"], run["opt_cfg"], model, opt, batch,
                                    c.TRAIN_MICRO)
-                del run
+                del run, model, opt
         except (RuntimeError, torch.OutOfMemoryError) as e:
             c.log(f"[probe] {arch} {n} lr {lr}: {type(e).__name__}: {str(e)[:300]}")
         c._free(dev)
